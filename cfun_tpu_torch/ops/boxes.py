@@ -1,0 +1,68 @@
+"""3D box arithmetic on tensors (port of ``cfun_tpu/ops/boxes.py:18-122``).
+
+Boxes are ``(z1, y1, x1, z2, y2, x2)`` with the far corner outside the box.
+The operation order follows the JAX functions term by term (volumes as
+``(d * h) * w``, IoU as ``inter / ((v1 + v2 - inter) + eps)``), so the
+f32 results agree bit for bit where both run the same IEEE operations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def box_volume(boxes: torch.Tensor) -> torch.Tensor:
+    """Volume of [..., 6] boxes."""
+    d = boxes[..., 3] - boxes[..., 0]
+    h = boxes[..., 4] - boxes[..., 1]
+    w = boxes[..., 5] - boxes[..., 2]
+    return d * h * w
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """IoU matrix [N, M] between [N, 6] and [M, 6] boxes; intersection
+    edges clamp at 0, the union gets a +eps guard."""
+    b1 = boxes1[:, None, :]
+    b2 = boxes2[None, :, :]
+    lo = torch.maximum(b1[..., :3], b2[..., :3])
+    hi = torch.minimum(b1[..., 3:], b2[..., 3:])
+    edge = torch.clamp(hi - lo, min=0.0)
+    inter = edge[..., 0] * edge[..., 1] * edge[..., 2]
+    union = box_volume(boxes1)[:, None] + box_volume(boxes2)[None, :] - inter
+    return inter / (union + eps)
+
+
+def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Apply (dz, dy, dx, log dd, log dh, log dw) refinements."""
+    size = boxes[..., 3:] - boxes[..., :3]
+    center = boxes[..., :3] + 0.5 * size
+    center = center + deltas[..., :3] * size
+    size = size * torch.exp(deltas[..., 3:])
+    lo = center - 0.5 * size
+    hi = lo + size
+    return torch.cat([lo, hi], dim=-1)
+
+
+def clip_boxes(boxes: torch.Tensor, window) -> torch.Tensor:
+    """Clamp box corners into ``window`` = (z1, y1, x1, z2, y2, x2)."""
+    window = torch.as_tensor(window, dtype=boxes.dtype, device=boxes.device)
+    lo = torch.minimum(torch.maximum(boxes[..., :3], window[:3]), window[3:])
+    hi = torch.minimum(torch.maximum(boxes[..., 3:], window[:3]), window[3:])
+    return torch.cat([lo, hi], dim=-1)
+
+
+def _scale(volume_shape, like: torch.Tensor) -> torch.Tensor:
+    d, h, w = volume_shape
+    return torch.tensor([d, h, w, d, h, w], dtype=like.dtype,
+                        device=like.device)
+
+
+def normalize_boxes(boxes: torch.Tensor, volume_shape) -> torch.Tensor:
+    """Voxel -> [0, 1] coordinates; ``volume_shape`` = (D, H, W)."""
+    return boxes / _scale(volume_shape, boxes)
+
+
+def denormalize_boxes(boxes: torch.Tensor, volume_shape) -> torch.Tensor:
+    """[0, 1] -> voxel coordinates; ``volume_shape`` = (D, H, W)."""
+    return boxes * _scale(volume_shape, boxes)

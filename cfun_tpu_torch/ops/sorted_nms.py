@@ -1,0 +1,110 @@
+"""Greedy 3D NMS over score-sorted boxes: the CUDA kernel and its plain
+PyTorch version.
+
+Port of ``cfun_tpu/ops/pallas_nms.py::pallas_sorted_nms`` (the Pallas TPU
+kernel ``_nms_kernel`` and the compaction after it).  The kernel is
+``csrc/sorted_nms.cu``, built by ``_build.py`` and bound with ctypes; its
+header comment gives the design.  ``sorted_nms`` launches it for CUDA
+tensors and uses ``sorted_nms_reference`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from cfun_tpu_torch.ops.boxes import pairwise_iou
+
+# Kernel launches made by ``sorted_nms`` (one per call on a CUDA tensor);
+# chip_smoke.py resets it and reads it around the served requests.
+launches = 0
+
+
+def sorted_nms_reference(boxes: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float, max_out: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, on the inputs' device.
+
+    boxes: [N, 6] f32 sorted by descending score; valid: [N] bool.
+    Returns (idx [max_out] int32, keep [max_out] bool): the kept positions
+    in score order, unfilled slots idx 0 / keep False.
+    """
+    n = boxes.shape[0]
+    device = boxes.device
+    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=device)
+    over = (pairwise_iou(boxes.float(), boxes.float()) > thr).cpu()
+    suppressed = ~valid.cpu()
+    keep_vec = torch.zeros(n, dtype=torch.bool)
+    count = 0
+    for i in range(n):
+        if count == max_out:
+            break
+        if not bool(suppressed[i]):
+            keep_vec[i] = True
+            suppressed |= over[i]
+            count += 1
+    # cumsum-scatter compaction (pallas_nms.py:113-122)
+    pos = torch.cumsum(keep_vec.to(torch.int64), 0) - 1
+    slot = torch.where(keep_vec & (pos < max_out), pos,
+                       torch.full_like(pos, max_out))
+    idx = torch.zeros(max_out + 1, dtype=torch.int32)
+    idx[slot] = torch.arange(n, dtype=torch.int32)
+    keep = torch.arange(max_out) < count
+    return idx[:max_out].to(device), keep.to(device)
+
+
+def _check(boxes: torch.Tensor, valid: torch.Tensor, max_out: int) -> None:
+    if boxes.dim() != 2 or boxes.shape[1] != 6:
+        raise ValueError(f"boxes must be [N, 6], got {tuple(boxes.shape)}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"boxes must be float32, got {boxes.dtype}")
+    if valid.shape != (boxes.shape[0],) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool [{boxes.shape[0]}], got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    if valid.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device}, valid on {valid.device}")
+    if max_out < 1:
+        raise ValueError(f"max_out must be >= 1, got {max_out}")
+
+
+def sorted_nms(boxes: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float, max_out: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over score-descending [N, 6] boxes; see
+    :func:`sorted_nms_reference` for the contract.  CUDA tensors go to the
+    kernel (N <= 4096), CPU tensors to the plain version."""
+    global launches
+    _check(boxes, valid, max_out)
+    if boxes.device.type == "cpu":
+        return sorted_nms_reference(boxes, valid, iou_threshold, max_out)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"sorted_nms runs on CPU or CUDA, got {boxes.device}")
+    from cfun_tpu_torch import _build
+
+    lib = _build.library()
+    n = boxes.shape[0]
+    if n > lib.cfun_sorted_nms_max_n():
+        raise ValueError(f"the sorted_nms kernel takes N <= "
+                         f"{lib.cfun_sorted_nms_max_n()}, got {n}")
+    boxes = boxes.contiguous()
+    valid = valid.contiguous()
+    scratch = torch.empty(max(lib.cfun_sorted_nms_scratch_words(n), 1),
+                          dtype=torch.int64, device=boxes.device)
+    idx = torch.empty(max_out, dtype=torch.int32, device=boxes.device)
+    keep = torch.empty(max_out, dtype=torch.bool, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.cfun_sorted_nms(
+            ctypes.c_void_p(boxes.data_ptr()),
+            ctypes.c_void_p(valid.data_ptr()), n,
+            ctypes.c_float(iou_threshold), max_out,
+            ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(idx.data_ptr()),
+            ctypes.c_void_p(keep.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sorted_nms kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return idx, keep

@@ -1,0 +1,48 @@
+"""The port stands alone: importing every module of cfun_tpu_torch pulls in
+neither JAX nor any module of the JAX package.  A subprocess, because this
+test process has imported JAX already (tests/conftest.py)."""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import cfun_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(cfun_tpu_torch.__path__,
+                                                "cfun_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "ml_dtypes", "cfun_tpu")
+             or m.startswith(("jax.", "jaxlib.", "cfun_tpu.")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_or_cfun_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, proc.stdout
+    assert bad == "[]", f"the port imported {bad}"
+
+
+def test_port_sources_name_no_jax_import():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|ml_dtypes|cfun_tpu(\.|\s|$))")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "cfun_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pattern.match(line):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{i}")
+    assert len(files) > 20 and offenders == []
