@@ -2,9 +2,10 @@
 
 trunk -> propose (top-k + NMS) -> pyramid RoIAlign -> classifier ->
 refine_detections (NMS again) -> RoIAlign crop of the raw image -> U-Net
-mask head -> on-device 2x trilinear upsample + argmax -> one packed int8
-buffer.  Every dynamic shape is fixed-capacity with a validity mask, as in
-the JAX graph.
+mask head (dense, or fused with ``Config.pallas_unet``) -> on-device 2x
+trilinear upsample (none at 'finetune', whose mask is already 2x) +
+argmax -> one packed int8 buffer.  Every dynamic shape is fixed-capacity
+with a validity mask, as in the JAX graph.
 
 Both NMS sites take an ``nms`` callable with the contract of
 ``ops/sorted_nms.py::sorted_nms`` (score-sorted boxes, valid, threshold,
@@ -206,14 +207,15 @@ def infer_forward(params: nn.Params, image: torch.Tensor,
     crops = roi_align(image[0].float(), det_boxes_norm,
                       tuple(cfg.mask_pool_size))
     mask_logits = apply_mask_head(params["mask"], crops, stage=cfg.stage,
-                                  dtype=dt)
+                                  dtype=dt, fused=cfg.pallas_unet)
     mask_probs = torch.softmax(mask_logits, dim=1)
     if cfg.fast_unmold:
         # 2x trilinear upsample (half-pixel, edge-clamped: the map of
         # jax.image.resize) + argmax on the device, so only int8 labels
-        # leave it
-        mask_probs = F.interpolate(mask_probs, scale_factor=2,
-                                   mode="trilinear", align_corners=False)
+        # leave it.  At finetune the mask is already 2x: no upsample.
+        if cfg.stage != "finetune":
+            mask_probs = F.interpolate(mask_probs, scale_factor=2,
+                                       mode="trilinear", align_corners=False)
         labels = torch.argmax(mask_probs, dim=1).to(torch.int8)
         return InferOut(detections, kept, None, labels)
     return InferOut(detections, kept,

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from cfun_tpu_torch import nn
-from cfun_tpu_torch.models.unet3d import apply_unet
+from cfun_tpu_torch.models.unet3d import apply_unet, apply_unet_fused
 
 
 def apply_classifier(params: nn.Params, pooled: torch.Tensor,
@@ -37,7 +37,16 @@ def apply_classifier(params: nn.Params, pooled: torch.Tensor,
 
 
 def apply_mask_head(params: nn.Params, crops: torch.Tensor, *, stage: str,
-                    dtype=torch.float32) -> torch.Tensor:
+                    dtype=torch.float32, fused: bool = False) -> torch.Tensor:
     """crops: [N, 1, D, H, W] raw-image crops -> logits
-    [N, num_classes, D, H, W] in ``dtype``."""
+    [N, num_classes, D', H', W'] in ``dtype`` (D' = 2D at 'finetune').
+
+    ``fused=True`` (``Config.pallas_unet``): the fused U-Net
+    (``models/unet3d.py::apply_unet_fused``), which computes in bfloat16."""
+    if fused:
+        if dtype != torch.bfloat16:
+            raise ValueError(f"fused=True computes in bfloat16; config "
+                             f"compute dtype is {dtype}")
+        return apply_unet_fused(params["unet"], crops, stage=stage,
+                                dtype=dtype)
     return apply_unet(params["unet"], crops, stage=stage, dtype=dtype)

@@ -1,5 +1,5 @@
 """Modified 3D U-Net mask branch, inference form (port of
-``cfun_tpu/models/unet3d.py::apply_unet``).
+``cfun_tpu/models/unet3d.py``: ``apply_unet`` and ``apply_unet_fused``).
 
 A 5-level context pathway (stride-2 3^3 convs, residual blocks,
 InstanceNorm + LeakyReLU) and a 4-level localization pathway (nearest
@@ -7,10 +7,9 @@ upsample + conv) with skip concatenations and deep supervision (ds2/ds3
 1^3 convs upsampled and summed into the output).  Inference has no
 dropout.  Kept quirks of the reference graph: ``c{N}_conv`` is applied
 twice with the same weights inside each context level, ``context_1`` taps
-the pre-norm activation, and every conv is bias-free.
-
-Only the 'beginning' and 'together' stages (96^3 masks) are ported; the
-'finetune' 2x upscale head (``out_upscale``) belongs to a later slice.
+the pre-norm activation, and every conv is bias-free.  At stage
+'finetune' an extra 2x upscale head (``out_upscale``, a 5^3 conv with a
+residual) doubles the output resolution.
 """
 
 from __future__ import annotations
@@ -18,16 +17,14 @@ from __future__ import annotations
 import torch
 
 from cfun_tpu_torch import nn
+from cfun_tpu_torch.ops.fused_conv import (fused_conv3d, identity_affine,
+                                           in_affine_from_sums)
 
 
 def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
                dtype=torch.float32) -> torch.Tensor:
-    """x: [B, c_in, D, H, W] crop -> class logits [B, n_classes, D, H, W]
-    in ``dtype``."""
-    if stage == "finetune":
-        raise NotImplementedError(
-            "the finetune upscale head is not ported yet (stage "
-            "'finetune'); the port serves 'beginning' and 'together'")
+    """x: [B, c_in, D, H, W] crop -> class logits [B, n_classes, D', H',
+    W'] in ``dtype``, where D' = D (2D at stage 'finetune')."""
 
     def conv(p, v, stride=1):
         return nn.conv3d(p, v, stride=stride, dtype=dtype)
@@ -97,4 +94,140 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     # ---- deep supervision
     ds2_up = nn.upsample_nearest(conv(params["ds2"], ds2))
     ds3_c = conv(params["ds3"], ds3)
-    return out_pred + nn.upsample_nearest(ds2_up + ds3_c)
+    out = out_pred + nn.upsample_nearest(ds2_up + ds3_c)
+    if stage == "finetune":
+        out = nn.upsample2_conv_residual(params["out_upscale"], out,
+                                         dtype=dtype)
+    return out
+
+
+def apply_unet_fused(params: nn.Params, x: torch.Tensor, *, stage: str,
+                     dtype=torch.bfloat16,
+                     min_fused_voxels: int = 4096) -> torch.Tensor:
+    """The same graph as :func:`apply_unet` with every stride-1 3^3 conv of
+    at least ``min_fused_voxels`` voxels (and more than one input channel)
+    lowered to ``ops.fused_conv.fused_conv3d`` (``Config.pallas_unet``;
+    port of ``cfun_tpu/models/unet3d.py::apply_unet_fused``).
+
+    The InstanceNorm + LeakyReLU before such a conv ride into it as a
+    per-(batch, channel) affine (nearest upsampling commutes with both, so
+    the up-convs upsample the raw tensor), and the conv emits its output
+    moments, so the InstanceNorm after it needs no reduction pass.  Smaller
+    convs take the same composition through ``F.conv3d``; stride-2 downs,
+    1^3 convs and the finetune upscale head stay plain.  bf16 rounds at
+    other places than in :func:`apply_unet`.
+    """
+    b = x.shape[0]
+
+    def nsp(t):
+        return t.shape[2] * t.shape[3] * t.shape[4]
+
+    def can_fuse(t):
+        return t.shape[1] > 1 and nsp(t) >= min_fused_voxels
+
+    def bc(v):
+        return v[:, :, None, None, None]
+
+    def in_affine(t):
+        """(scale, shift) of IN(t), two-pass statistics (used where the
+        producing op was not a fused conv)."""
+        mean = torch.mean(t, dim=(2, 3, 4), dtype=torch.float32)
+        var = torch.mean(torch.square(t.float() - bc(mean)), dim=(2, 3, 4))
+        scale = torch.rsqrt(var + 1e-5)
+        return scale, -mean * scale
+
+    def conv(p, v, stride=1):
+        return nn.conv3d(p, v, stride=stride, dtype=dtype)
+
+    def fconv(p, v, affine=None, pre_lrelu=True):
+        """Fused conv; the plain composition below min_fused_voxels."""
+        if affine is None:
+            affine = identity_affine(b, v.shape[1], device=v.device)
+        if can_fuse(v):
+            return fused_conv3d(v.contiguous(), p["w"], affine[0],
+                                affine[1], pre_lrelu=pre_lrelu,
+                                out_dtype=dtype)
+        sc, sh = affine
+        act = v.float() * bc(sc) + bc(sh)
+        if pre_lrelu:
+            act = nn.leaky_relu(act)
+        y = conv(p, act.to(dtype))
+        s = torch.stack([torch.sum(y, dim=(2, 3, 4), dtype=torch.float32),
+                         torch.sum(torch.square(y.float()), dim=(2, 3, 4))],
+                        dim=1)
+        return y, s
+
+    def apply_affine_lrelu(v, sums):
+        sc, sh = in_affine_from_sums(sums, nsp(v))
+        return nn.leaky_relu(v.float() * bc(sc) + bc(sh)).to(v.dtype)
+
+    # ---- level 1 context
+    out = nn.conv3d_1ch(params["c1_1"], x, dtype=dtype)
+    residual = out
+    out, _ = fconv(params["c1_2"], out)               # lrelu folded in
+    out, _ = fconv(params["c1_lrelu_conv"], out)
+    out = out + residual
+    context_1 = nn.leaky_relu(out)
+    aff = in_affine(out)
+
+    # ---- levels 2-5 context
+    contexts = []
+    for lvl in (2, 3, 4, 5):
+        if lvl == 2:
+            down_in = nn.leaky_relu(out.float() * bc(aff[0]) +
+                                    bc(aff[1])).to(dtype)
+        else:
+            down_in = nn.leaky_relu(nn.instance_norm(out))
+        out = conv(params[f"c{lvl}_down"], down_in, stride=2)
+        residual = out
+        o1, s1 = fconv(params[f"c{lvl}_conv"], out, affine=in_affine(out))
+        o2, _ = fconv(params[f"c{lvl}_conv"], o1,
+                      affine=in_affine_from_sums(s1, nsp(o1)))
+        out = o2 + residual
+        if lvl < 5:
+            contexts.append(nn.leaky_relu(nn.instance_norm(out)))
+    context_2, context_3, context_4 = contexts
+
+    def up_conv(p, v, affine):
+        # the affine is v's; upsample the raw tensor and fold it in
+        return fconv(p, nn.upsample_nearest(v), affine=affine)
+
+    # ---- level 0 localization
+    out, s = up_conv(params["l0_up_conv"], out, in_affine(out))
+    out = apply_affine_lrelu(out, s)
+    out = conv(params["l0_conv"], out)
+    out = nn.leaky_relu(nn.instance_norm(out))
+
+    # ---- decoder
+    def decode(cat, conv_p, reduce_p, upconv_p):
+        o, s = fconv(conv_p, cat, pre_lrelu=False)
+        o = apply_affine_lrelu(o, s)
+        ds = o
+        o = conv(reduce_p, o)
+        o, s = up_conv(upconv_p, o, in_affine(o))
+        return apply_affine_lrelu(o, s), ds
+
+    out = torch.cat([out, context_4], dim=1)
+    out, _ = decode(out, params["l1_conv"], params["l1_reduce"],
+                    params["l1_up_conv"])
+    out = torch.cat([out, context_3], dim=1)
+    out, ds2 = decode(out, params["l2_conv"], params["l2_reduce"],
+                      params["l2_up_conv"])
+    out = torch.cat([out, context_2], dim=1)
+    out, ds3 = decode(out, params["l3_conv"], params["l3_reduce"],
+                      params["l3_up_conv"])
+
+    out = torch.cat([out, context_1], dim=1)
+    o, s = fconv(params["l4_conv"], out, pre_lrelu=False)
+    out = apply_affine_lrelu(o, s)
+    out_pred = conv(params["l4_out"], out)
+
+    # ---- deep supervision
+    ds2_up = nn.upsample_nearest(conv(params["ds2"], ds2))
+    ds3_c = conv(params["ds3"], ds3)
+    out = out_pred + nn.upsample_nearest(ds2_up + ds3_c)
+
+    if stage == "finetune":
+        out = nn.upsample2_conv_residual(params["out_upscale"], out,
+                                         dtype=dtype)
+    return out

@@ -9,8 +9,10 @@ weights to ``dtype`` (bfloat16 for the heart model) and go to
 The JAX package's ``conv3d_stem_s2d`` and the ``_conv1ch_s1`` custom VJP
 are workarounds for the TPU's lane padding of 1-channel tensors; they
 compute the same map as a plain stride-2 conv and a plain 1-channel conv,
-which is what the port runs.  ``upsample2_conv`` is likewise computed as a
-nearest upsample followed by the conv (the same map up to reassociation).
+which is what the port runs.  ``upsample2_conv`` and
+``upsample2_conv_residual`` are likewise computed as a nearest upsample
+followed by the conv (the same maps as the JAX package's phase-decomposed
+forms, up to reassociation).
 """
 
 from __future__ import annotations
@@ -93,3 +95,16 @@ def upsample2_conv(p: Params, x: torch.Tensor,
         raise ValueError(f"upsample2_conv takes a 3^3 kernel, got "
                          f"{tuple(p['w'].shape[2:])}")
     return conv3d(p, upsample_nearest(x.to(dtype)), dtype=dtype)
+
+
+def upsample2_conv_residual(p: Params, x: torch.Tensor,
+                            dtype=torch.float32) -> torch.Tensor:
+    """``up + conv3d(p, up)`` with ``up = upsample_nearest(x)``: the
+    finetune 2x upscale head (5^3 ``out_upscale`` kernel, reference
+    mask_branch.py:216-218).
+
+    Computed in the explicit form, so ``up`` is materialized: at heart
+    finetune (one [1, 8, 192, 192, 192] crop in bf16) that is 113 MB, and
+    the conv's output as much again."""
+    up = upsample_nearest(x.to(dtype))
+    return up + conv3d(p, up, dtype=dtype)

@@ -16,11 +16,27 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           the served graph with the plain NMS passed in must give the same
           detections, and the kernel is held against its plain version on
           the NMS inputs the served graph produced
-  profile where a served request's device time goes (torch.profiler)
-          and K1's device time without the host's launch cost (CUDA-graph
-          replay)
+  k2      holds the fused-conv kernel against its plain PyTorch version
+          on edge cases and at the 9 shapes the fused U-Net gives it (y
+          within one bf16 ulp, moments to 1e-4, two launches bit-equal),
+          and times it there beside its bound, the plain version and
+          cuDNN's bf16 conv alone
+  serve_fused  the same three requests with the fused U-Net
+          (pallas_unet=True): K2 12 times a request, the same detections
+          as 'serve', and on one served crop at full size the fused and
+          the dense bf16 U-Net held against the dense f32 one (TF32 off)
+  serve_ft  stage 'finetune' with the fused U-Net and
+          weights/heart_synth_ft.npz: three requests, 192^3 label volumes,
+          and the same criterion against the dense finetune U-Net
+  profile where a served request's device time goes (torch.profiler), on
+          the dense, fused and finetune paths, and K1's device time
+          without the host's launch cost (CUDA-graph replay; K2's is
+          taken in phase k2)
   small   the port on the card against the port on the CPU (plain
           versions, float32, TF32 off) on the tiny config
+
+Each served phase sets every kernel's launch count to 0 just before its
+three requests and reads the counts just after.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
@@ -41,6 +57,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WATCHDOG_S = 600
 H100_F32_OPS_PER_S = 67e12   # H100 SXM data sheet, f32 outside tensor cores
+H100_BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 IOU_OPS_PER_PAIR = 19        # 12 min/max/sub/clamp, 2 mul, 2 add/sub, +eps, div, >
 
@@ -105,6 +122,140 @@ def nms_bound_ms(valid, idx, keep):
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations", pairs
     return t_bytes * 1e3, "bytes", pairs
+
+
+def k2_bound_ms(b, c_in, c_out, v):
+    """Least time for one fused-conv call on an H100: 2 * 27 * C_in *
+    C_out multiply-adds a voxel over the bf16 tensor-core rate, against
+    the bytes moved once (x read and y written in bf16, w in bf16, scale,
+    shift and sums in f32) over the HBM rate.  Returns (ms, 'bytes' |
+    'operations')."""
+    ops = 2 * 27 * c_in * c_out * v * b
+    nbytes = (b * c_in * v * 2 + b * c_out * v * 2 + c_out * c_in * 27 * 2
+              + 2 * b * c_in * 4 + b * 2 * c_out * 4)
+    t_ops = ops / H100_BF16_OPS_PER_S
+    t_bytes = nbytes / H100_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+# The fused U-Net's K2 calls at a 96^3 crop and base 20 (min_fused_voxels
+# 4096): (C_in, C_out, edge, calls a detection).
+K2_SERVED = ((20, 20, 96, 2), (40, 20, 96, 1), (40, 40, 96, 1),
+             (40, 40, 48, 2), (80, 40, 48, 1), (80, 80, 48, 1),
+             (80, 80, 24, 2), (160, 80, 24, 1), (160, 160, 24, 1))
+# (B, C_in, C_out, D, H, W, pre_lrelu): D = 1, B = 2, sizes and channel
+# counts that are not multiples of the kernel's tiles and chunks
+K2_EDGE = ((1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
+           (2, 6, 5, 5, 7, 9, False), (1, 33, 47, 9, 9, 9, True),
+           (1, 160, 160, 3, 5, 17, False), (1, 4, 160, 4, 8, 8, True),
+           (1, 160, 4, 4, 8, 8, True), (3, 20, 20, 7, 13, 11, True))
+
+
+def k2_inputs(b, c_in, c_out, d, h, w, seed, device):
+    """Seeded inputs for one fused-conv call: bf16 x, f32 weights at the
+    scale of the U-Net's Xavier init, a random (non-identity) affine."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, c_in, d, h, w), generator=g).to(torch.bfloat16)
+    lim = (6.0 / (27 * (c_in + c_out))) ** 0.5
+    wt = (torch.rand((c_out, c_in, 3, 3, 3), generator=g) * 2 - 1) * lim
+    scale = 1.0 + 0.2 * torch.randn((b, c_in), generator=g)
+    shift = 0.3 * torch.randn((b, c_in), generator=g)
+    return [t.to(device) for t in (x, wt, scale, shift)]
+
+
+def k2_check(k2, args, pre_lrelu, what):
+    """K2 against its plain version on ``args``: y within one bf16 ulp of
+    its magnitude (2^-7 bounds an ulp) plus 2^-16 of the sum of |terms|
+    (the f32 sums' reassociation), Σy within 1e-4 of Σ|y|, Σy^2 within
+    1e-4 relative, and two launches bit-equal.  Returns max |y - y_plain|."""
+    import torch
+    import torch.nn.functional as F
+
+    x, wt, scale, shift = args
+    y, s = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
+    y2, s2 = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
+    ry, rs = k2.fused_conv3d_reference(*args, pre_lrelu=pre_lrelu)
+    torch.cuda.synchronize()
+    check(torch.equal(y.view(torch.int16), y2.view(torch.int16)) and
+          torch.equal(s, s2), f"k2 {what}: two launches differ")
+    act = x.float() * scale[:, :, None, None, None] + \
+        shift[:, :, None, None, None]
+    if pre_lrelu:
+        act = F.leaky_relu(act, 0.01)
+    y_abs = F.conv3d(act.abs(), wt.to(torch.bfloat16).float().abs(),
+                     padding=1)
+    yf, ryf = y.float(), ry.float()
+    err = (yf - ryf).abs()
+    tol = 2.0 ** -7 * torch.maximum(yf.abs(), ryf.abs()) + 2.0 ** -16 * y_abs
+    n_bad = int((err > tol).sum())
+    check(n_bad == 0, f"k2 {what}: {n_bad} outputs beyond one bf16 ulp "
+          f"(max err {float(err.max())})")
+    ysum_abs = ryf.abs().sum(dim=(2, 3, 4))
+    check(bool(((s[:, 0] - rs[:, 0]).abs() <= 1e-4 * ysum_abs).all()),
+          f"k2 {what}: sum(y)")
+    check(bool(((s[:, 1] - rs[:, 1]).abs() <= 1e-4 * rs[:, 1]).all()),
+          f"k2 {what}: sum(y^2)")
+    return float(err.max())
+
+
+def graph_ms(fn):
+    """Median device ms of one call of ``fn`` from CUDA-graph replays (no
+    host launch cost)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, 100, 5)
+
+
+def unet_criterion(apply_unet, apply_unet_fused, uparams, crop, stage):
+    """The fused and the dense bf16 U-Net on one served crop, held against
+    the dense f32 U-Net with TF32 off (tests/test_pallas_conv.py's
+    criterion): fused mean error <= 1.5 x dense bf16's + 1e-3, fused argmax
+    agreement >= dense bf16's - 0.01.  Returns the numbers."""
+    import torch
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = apply_unet(uparams, crop, stage=stage,
+                             dtype=torch.float32)
+            dense = apply_unet(uparams, crop, stage=stage,
+                               dtype=torch.bfloat16).float()
+            fused = apply_unet_fused(uparams, crop, stage=stage).float()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    check(fused.shape == ref.shape, f"{stage}: fused shape {fused.shape}")
+    check(bool(torch.isfinite(fused).all()), f"{stage}: fused finite")
+    out = {"dense_err": float((dense - ref).abs().mean()),
+           "fused_err": float((fused - ref).abs().mean()),
+           "dense_agree": float((dense.argmax(1) == ref.argmax(1))
+                                .float().mean()),
+           "fused_agree": float((fused.argmax(1) == ref.argmax(1))
+                                .float().mean())}
+    print(f"{stage} crop {tuple(crop.shape)}: vs f32 dense, mean err "
+          f"dense bf16 {out['dense_err']:.6f} fused {out['fused_err']:.6f};"
+          f" argmax agree dense bf16 {out['dense_agree']:.6f} fused "
+          f"{out['fused_agree']:.6f}", flush=True)
+    check(out["fused_err"] <= 1.5 * out["dense_err"] + 1e-3,
+          f"{stage}: fused error {out}")
+    check(out["fused_agree"] >= out["dense_agree"] - 0.01,
+          f"{stage}: fused agreement {out}")
+    return out
 
 
 def synth_heart(seed, shape=(256, 256, 128)):
@@ -173,15 +324,11 @@ def _dev_us(event) -> float:
             or getattr(event, "cuda_time_total", 0))
 
 
-def profile_requests(det, vols, seen, k1):
-    """Where a served request's device time goes, and K1's device time.
-
-    Three requests under torch.profiler: device time summed over all
-    kernels, and the kernels with the most of it.  Then K1 on the captured
-    inputs of both NMS sites, without the host's launch cost: the median
-    replay of a CUDA graph of one call (CUDA events), and torch.profiler's
-    device time of its two kernels a call.  Returns the graph-replay ms of
-    each site."""
+def profile_requests(det, vols, label):
+    """Where a served request's device time goes: three requests under
+    torch.profiler, device time summed over all kernels, and the kernels
+    with the most of it.  Returns (busy ms a request, {kernel: ms a
+    request})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -193,37 +340,94 @@ def profile_requests(det, vols, seen, k1):
     dev = sorted(((_dev_us(e), e.key, e.count) for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  reverse=True)
-    print(f"profile: device busy {sum(d for d, _, _ in dev) / 3e3:.3f} ms "
-          f"per request", flush=True)
-    for us, name, count in dev[:12]:
-        print(f"profile: {us / 3e3:.3f} ms/request {count / 3:g} "
+    busy = sum(d for d, _, _ in dev) / 3e3
+    print(f"profile {label}: device busy {busy:.3f} ms per request",
+          flush=True)
+    for us, name, count in dev[:14]:
+        print(f"profile {label}: {us / 3e3:.3f} ms/request {count / 3:g} "
               f"calls/request {name[:100]}", flush=True)
+    return busy, {name: us / 3e3 for us, name, _ in dev}
 
-    graph_ms = []
-    for boxes, valid, thr, k in seen:
-        def call():
-            k1.sorted_nms(boxes, valid, thr, k)
 
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
+def kernel_device_ms(call, names, reps=20):
+    """Device ms of one ``call()``: the median replay of a CUDA graph of
+    it (CUDA events), and torch.profiler's device time of the kernels
+    whose names contain one of ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    replay = graph_ms(call)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
             call()
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            call()
-        graph_ms.append(cuda_ms(graph.replay, 200, 10))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                call()
-            torch.cuda.synchronize()
-        kernel_us = sum(_dev_us(e) for e in prof.key_averages()
-                        if "iou_mask_kernel" in e.key
-                        or "sweep_kernel" in e.key)
-        print(f"profile: k1 N={boxes.shape[0]} k={k} thr={thr}: device "
-              f"{graph_ms[-1]:.4f} ms (graph replay), {kernel_us / 20e3:.4f} "
-              f"ms (profiler)", flush=True)
-    return graph_ms
+        torch.cuda.synchronize()
+    kernel_us = sum(_dev_us(e) for e in prof.key_averages()
+                    if any(n in e.key for n in names))
+    return replay, kernel_us / (reps * 1e3)
+
+
+def serve_three(det, vols, counters, label):
+    """One warm-up request (cuDNN set-up, not counted), then every kernel
+    launch count set to 0, three requests through ``Detector.detect``, and
+    the counts read just after.  Checks each result's shape, labels and
+    scores.  Returns (results, {kernel: launches}, detections found)."""
+    import numpy as np
+    import torch
+
+    cfg = det.cfg
+    det.detect(vols[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    results, timings = [], []
+    for vol in vols:
+        results.append(det.detect(vol))
+        timings.append(dict(det.last_timings))
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in counters.items()}
+
+    n_found = 0
+    for i, (vol, res, t) in enumerate(zip(vols, results, timings)):
+        check(res["mask"].shape == vol.shape, f"{label} {i} mask shape")
+        check(res["mask"].dtype == np.int16, f"{label} {i} mask dtype")
+        check(int(res["mask"].min()) >= 0 and
+              int(res["mask"].max()) < cfg.num_classes,
+              f"{label} {i} labels in [0, {cfg.num_classes})")
+        check(res["rois"].ndim == 2 and res["rois"].shape[1] == 6,
+              f"{label} {i} rois shape")
+        check(np.all(np.isfinite(res["scores"])), f"{label} {i} scores")
+        n_found += len(res["scores"])
+        print(f"{label} request {i}: mold {t['mold'] * 1e3:.1f} ms device "
+              f"{t['device'] * 1e3:.1f} ms unmold {t['unmold'] * 1e3:.1f}"
+              f" ms total {t['total'] * 1e3:.1f} ms; rois "
+              f"{res['rois'].tolist()} scores {res['scores'].tolist()} "
+              f"labelled voxels {int((res['mask'] > 0).sum())}",
+              flush=True)
+    print(f"{label}: served 3 requests, {n_found} detection(s), launches "
+          f"{launches}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    return results, launches, n_found
+
+
+def capture_crop(cfun, det, vol):
+    """The mask head's input crop [1, 1, 96, 96, 96] f32 of one request
+    (the served graph's own RoIAlign output)."""
+    seen = []
+    orig = cfun.apply_mask_head
+
+    def record(params, crops, **kw):
+        seen.append(crops.clone())
+        return orig(params, crops, **kw)
+
+    wire, window, _ = det.mold(vol)
+    cfun.apply_mask_head = record
+    try:
+        det.infer(wire, window)
+    finally:
+        cfun.apply_mask_head = orig
+    check(len(seen) == 1, "one mask-head call a request")
+    return seen[0]
 
 
 def main() -> int:
@@ -242,7 +446,11 @@ def main() -> int:
     from cfun_tpu_torch import weights
     from cfun_tpu_torch.inference import Detector
     from cfun_tpu_torch.models import cfun
+    from cfun_tpu_torch.models.unet3d import apply_unet, apply_unet_fused
+    from cfun_tpu_torch.ops import fused_conv as k2
     from cfun_tpu_torch.ops import sorted_nms as k1
+
+    counters = {"sorted_nms": k1, "fused_conv3d": k2}
 
     dev = torch.device("cuda", 0)
 
@@ -276,6 +484,36 @@ def main() -> int:
             n_cases += 1
         print(f"k1 exact on {n_cases} cases", flush=True)
 
+    with phase("k2"):
+        for i, (b, ci, co, d, h, w, pre) in enumerate(K2_EDGE):
+            k2_check(k2, k2_inputs(b, ci, co, d, h, w, 100 + i, dev), pre,
+                     f"edge B={b} {ci}->{co} {d}x{h}x{w} pre_lrelu={pre}")
+        print(f"k2 within tolerance and deterministic on {len(K2_EDGE)} "
+              f"edge cases", flush=True)
+        k2_shapes = []
+        for i, (ci, co, n, calls) in enumerate(K2_SERVED):
+            args = k2_inputs(1, ci, co, n, n, n, 200 + i, dev)
+            err = k2_check(k2, args, True, f"served {ci}->{co} {n}^3")
+            x, wt, scale, shift = args
+            w16 = wt.to(torch.bfloat16)
+            ms = cuda_ms(lambda: k2.fused_conv3d(*args), 50)
+            plain_ms = cuda_ms(lambda: k2.fused_conv3d_reference(*args), 10)
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
+            device_ms, kernel_ms = kernel_device_ms(
+                lambda: k2.fused_conv3d(*args), ("fused_conv3d_kernel",))
+            bound, by = k2_bound_ms(1, ci, co, n ** 3)
+            k2_shapes.append({
+                "shape": f"{ci}->{co} @{n}^3", "calls_per_detection": calls,
+                "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms, "max_abs_err": err})
+            print(f"k2 {ci}->{co} @{n}^3 x{calls}: kernel {ms:.4f} ms "
+                  f"(device {device_ms:.4f} graph / {kernel_ms:.4f} "
+                  f"profiler), plain {plain_ms:.4f} ms, cuDNN bf16 conv "
+                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by}),"
+                  f" max err {err:.3g}", flush=True)
+
     with phase("serve"):
         cfg = port_config.heart_inference_config("beginning",
                                                  nms_backend="pallas")
@@ -285,42 +523,12 @@ def main() -> int:
               f"stage={meta.get('stage')}", flush=True)
         det = Detector(cfg, params)
         vols = [synth_heart(seed) for seed in range(3)]
-        det.detect(vols[0])  # first call: cuDNN set-up, not counted
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-        k1.launches = 0
-        results, timings = [], []
-        for vol in vols:
-            results.append(det.detect(vol))
-            timings.append(dict(det.last_timings))
-        torch.cuda.synchronize()
-        served_launches = k1.launches
-
-        n_found = 0
-        for i, (vol, res, t) in enumerate(zip(vols, results, timings)):
-            check(res["mask"].shape == vol.shape, f"request {i} mask shape")
-            check(res["mask"].dtype == np.int16, f"request {i} mask dtype")
-            check(int(res["mask"].min()) >= 0 and
-                  int(res["mask"].max()) < cfg.num_classes,
-                  f"request {i} labels in [0, {cfg.num_classes})")
-            check(res["rois"].ndim == 2 and res["rois"].shape[1] == 6,
-                  f"request {i} rois shape")
-            check(np.all(np.isfinite(res["scores"])), f"request {i} scores")
-            n_found += len(res["scores"])
-            print(f"request {i}: mold {t['mold'] * 1e3:.1f} ms device "
-                  f"{t['device'] * 1e3:.1f} ms unmold {t['unmold'] * 1e3:.1f}"
-                  f" ms total {t['total'] * 1e3:.1f} ms; rois "
-                  f"{res['rois'].tolist()} scores {res['scores'].tolist()} "
-                  f"labelled voxels {int((res['mask'] > 0).sum())}",
-                  flush=True)
-        print(f"served 3 requests, {n_found} detection(s), sorted_nms "
-              f"launches {served_launches}", flush=True)
+        results, served, n_found = serve_three(det, vols, counters, "serve")
+        served_launches = served["sorted_nms"]
         check(served_launches >= 1, "the served path launched sorted_nms")
         check(served_launches == 6, "two sorted_nms launches per request")
+        check(served["fused_conv3d"] == 0, "the dense U-Net launches no K2")
         check(n_found >= 1, "the trained model detects the synthetic heart")
-        print(f"max_memory_allocated {torch.cuda.max_memory_allocated()} B",
-              flush=True)
 
         # the same request through the plain NMS: same detections
         wire, window, _ = det.mold(vols[0])
@@ -365,9 +573,77 @@ def main() -> int:
                   f" plain {plain_ms:.3f} ms, bound {bound:.3g} ms ({by}), "
                   f"kept {kept}, IoU pairs needed {pairs}", flush=True)
 
+    with phase("serve_fused"):
+        fcfg = port_config.heart_inference_config(
+            "beginning", nms_backend="pallas", pallas_unet=True)
+        fdet = Detector(fcfg, params)
+        fresults, fused_launches, _ = serve_three(fdet, vols, counters,
+                                                  "serve_fused")
+        check(fused_launches["fused_conv3d"] == 36,
+              f"12 K2 launches a request, got {fused_launches}")
+        check(fused_launches["sorted_nms"] == 6,
+              f"two K1 launches a request, got {fused_launches}")
+        for i, (rd, rf) in enumerate(zip(results, fresults)):
+            check(np.array_equal(rd["rois"], rf["rois"]) and
+                  np.array_equal(rd["scores"], rf["scores"]),
+                  f"serve_fused {i}: detections {rf['rois'].tolist()} "
+                  f"{rf['scores'].tolist()} vs dense {rd['rois'].tolist()} "
+                  f"{rd['scores'].tolist()}")
+        agree_fd = [float((rd["mask"] == rf["mask"]).mean())
+                    for rd, rf in zip(results, fresults)]
+        print(f"serve_fused: same detections as serve; label agreement "
+              f"with the dense path {agree_fd}", flush=True)
+        crop = capture_crop(cfun, fdet, vols[0])
+        crit_fused = unet_criterion(apply_unet, apply_unet_fused,
+                                    fdet.params["mask"]["unet"], crop,
+                                    "beginning")
+
+    with phase("serve_ft"):
+        tcfg_ft = port_config.heart_inference_config(
+            "finetune", nms_backend="pallas", pallas_unet=True)
+        wpath_ft = os.path.join(ROOT, "weights", "heart_synth_ft.npz")
+        params_ft, meta_ft = weights.load_npz(wpath_ft, tcfg_ft)
+        print(f"weights {os.path.relpath(wpath_ft, ROOT)} "
+              f"tag={meta_ft.get('tag')} stage={meta_ft.get('stage')}",
+              flush=True)
+        check(meta_ft.get("stage") == "finetune", "finetune checkpoint")
+        ftdet = Detector(tcfg_ft, params_ft)
+        check(ftdet.labels_shape == (1, 192, 192, 192),
+              f"finetune labels shape {ftdet.labels_shape}")
+        _, ft_launches, _ = serve_three(ftdet, vols, counters, "serve_ft")
+        check(ft_launches["fused_conv3d"] == 36,
+              f"12 K2 launches a request, got {ft_launches}")
+        check(ft_launches["sorted_nms"] == 6,
+              f"two K1 launches a request, got {ft_launches}")
+        wire, window, _ = ftdet.mold(vols[0])
+        buf = ftdet.infer(wire, window).cpu().numpy()
+        _, _, labels = cfun.unpack_fast_output(
+            buf, tcfg_ft.detection_max_instances, ftdet.labels_shape)
+        check(labels.shape == (1, 192, 192, 192) and labels.min() >= 0 and
+              labels.max() < tcfg_ft.num_classes,
+              f"finetune label volume {labels.shape}")
+        crop = capture_crop(cfun, ftdet, vols[0])
+        crit_ft = unet_criterion(apply_unet, apply_unet_fused,
+                                 ftdet.params["mask"]["unet"], crop,
+                                 "finetune")
+
     with phase("profile"):
-        for site, ms in zip(kern, profile_requests(det, vols, seen, k1)):
-            site["device_ms"] = ms
+        busy_dense, _ = profile_requests(det, vols, "serve")
+        busy_fused, by_kernel = profile_requests(fdet, vols, "serve_fused")
+        busy_ft, _ = profile_requests(ftdet, vols, "serve_ft")
+        k2_busy = sum(ms for name, ms in by_kernel.items()
+                      if "fused_conv3d_kernel" in name)
+        print(f"profile: K2 {k2_busy:.3f} ms of {busy_fused:.3f} ms device "
+              f"busy a fused request (dense request {busy_dense:.3f} ms, "
+              f"fused finetune request {busy_ft:.3f} ms)", flush=True)
+        for site, (boxes, valid, thr, k) in zip(kern, seen):
+            replay, prof_ms = kernel_device_ms(
+                lambda: k1.sorted_nms(boxes, valid, thr, k),
+                ("iou_mask_kernel", "sweep_kernel"))
+            site["device_ms"] = replay
+            print(f"profile: k1 N={boxes.shape[0]} k={k} thr={thr}: device "
+                  f"{replay:.4f} ms (graph replay), {prof_ms:.4f} ms "
+                  f"(profiler)", flush=True)
 
     with phase("small"):
         tcfg = port_config.tiny_config(detection_max_instances=1,
@@ -401,6 +677,10 @@ def main() -> int:
     total = time.perf_counter() - _T0
     print(f"total {total:.3f} s", flush=True)
     per_req_ms = sum(s["ms"] for s in kern)
+
+    def per_detection(key):
+        return sum(s[key] * s["calls_per_detection"] for s in k2_shapes)
+
     line = {"kernels": [{
         "name": "sorted_nms", "route": "cuda",
         "source": "cfun_tpu_torch/csrc/sorted_nms.cu",
@@ -413,7 +693,31 @@ def main() -> int:
         "bound_ms": sum(s["bound_ms"] for s in kern),
         "bound_by": max(kern, key=lambda s: s["bound_ms"])["bound_by"],
         "library_ms": None, "exact_match": True,
-        "per_shape": kern}]}
+        "launches_by_path": {"serve": served["sorted_nms"],
+                             "serve_fused": fused_launches["sorted_nms"],
+                             "serve_ft": ft_launches["sorted_nms"]},
+        "per_shape": kern}, {
+        "name": "fused_conv3d", "route": "cuda",
+        "source": "cfun_tpu_torch/csrc/fused_conv3d.cu",
+        "replaces": "cfun_tpu/ops/pallas_conv.py:179",
+        "shape": "12 calls a detection at base 20: " + " + ".join(
+            f"{s['calls_per_detection']}x {s['shape']}" for s in k2_shapes),
+        "launches": fused_launches["fused_conv3d"],
+        "launches_per_request": 12,
+        "launches_by_path": {"serve": served["fused_conv3d"],
+                             "serve_fused": fused_launches["fused_conv3d"],
+                             "serve_ft": ft_launches["fused_conv3d"]},
+        "max_abs_err": max(s["max_abs_err"] for s in k2_shapes),
+        "ms": per_detection("ms"), "device_ms": per_detection("device_ms"),
+        "plain_ms": per_detection("plain_ms"),
+        "bound_ms": per_detection("bound_ms"),
+        "bound_by": max(k2_shapes, key=lambda s: s["bound_ms"] *
+                        s["calls_per_detection"])["bound_by"],
+        "library_ms": per_detection("library_ms"),
+        "library": "torch.nn.functional.conv3d in bf16 (cuDNN), the conv "
+                   "alone: no PyTorch call computes the fused function",
+        "unet_criterion": {"beginning": crit_fused, "finetune": crit_ft},
+        "per_shape": k2_shapes}]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

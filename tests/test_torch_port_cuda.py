@@ -1,9 +1,10 @@
-"""The port's CUDA kernel and device path, on a card.
+"""The port's CUDA kernels and device path, on a card.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
-false (decided inside the fixture, never at import).  On the GPU machine:
-``python -m pytest tests/test_torch_port_cuda.py -m cuda``.  chip_smoke.py
-runs the same checks at the served shapes.
+false (decided inside the fixture, never at import).  On the GPU machine,
+which has no JAX (tests/conftest.py imports it):
+``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
+chip_smoke.py runs the same checks at the served shapes.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import weights
 from cfun_tpu_torch.inference import Detector
+from cfun_tpu_torch.ops import fused_conv as k2
 from cfun_tpu_torch.ops import sorted_nms as k1
 
 pytestmark = pytest.mark.cuda
@@ -65,3 +67,46 @@ def test_detector_card_matches_cpu(cuda):
     assert got["rois"].shape == want["rois"].shape
     assert np.abs(got["rois"] - want["rois"]).max(initial=0) <= 1
     assert float((got["mask"] == want["mask"]).mean()) >= 0.99
+
+
+@pytest.mark.parametrize("b,c,co,d,h,w,pre_lrelu", [
+    (1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
+    (2, 6, 5, 5, 7, 9, False), (1, 33, 47, 9, 9, 9, True),
+    (1, 160, 160, 3, 5, 17, False), (3, 20, 20, 7, 13, 11, True)])
+def test_fused_conv_matches_plain(cuda, b, c, co, d, h, w, pre_lrelu):
+    """K2 against its plain version: y within one bf16 ulp of its
+    magnitude plus 2^-16 of the sum of |terms| (the f32 sums'
+    reassociation), moments to 1e-4, and two launches bit-equal."""
+    g = torch.Generator().manual_seed(b * 1000 + c)
+    x = torch.randn((b, c, d, h, w), generator=g).to(torch.bfloat16)
+    wt = 0.1 * torch.randn((co, c, 3, 3, 3), generator=g)
+    scale = 1.0 + 0.2 * torch.randn((b, c), generator=g)
+    shift = 0.3 * torch.randn((b, c), generator=g)
+    args = [t.to(cuda) for t in (x, wt, scale, shift)]
+    before = k2.launches
+    y, s = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
+    y2, s2 = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
+    assert k2.launches == before + 2
+    assert torch.equal(y.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(s, s2)
+    ry, rs = k2.fused_conv3d_reference(*args, pre_lrelu=pre_lrelu)
+    act = args[0].float() * args[2][:, :, None, None, None] + \
+        args[3][:, :, None, None, None]
+    if pre_lrelu:
+        act = torch.nn.functional.leaky_relu(act, 0.01)
+    y_abs = torch.nn.functional.conv3d(
+        act.abs(), args[1].to(torch.bfloat16).float().abs(), padding=1)
+    tol = 2.0 ** -7 * torch.maximum(y.float().abs(), ry.float().abs()) + \
+        2.0 ** -16 * y_abs
+    assert bool(((y.float() - ry.float()).abs() <= tol).all())
+    ysum_abs = ry.float().abs().sum(dim=(2, 3, 4))
+    assert bool(((s[:, 0] - rs[:, 0]).abs() <= 1e-4 * ysum_abs).all())
+    assert bool(((s[:, 1] - rs[:, 1]).abs() <= 1e-4 * rs[:, 1]).all())
+
+
+def test_fused_conv_rejects_noncontiguous(cuda):
+    x = torch.zeros((1, 4, 8, 8, 8), dtype=torch.bfloat16, device=cuda)
+    sc, sh = k2.identity_affine(1, 4, device=cuda)
+    w = torch.zeros((4, 4, 3, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fused_conv3d(x.transpose(2, 4), w, sc, sh)

@@ -2,7 +2,8 @@
 package, on the CPU.
 
 ``Detector.detect`` of both packages on the same raw volume and the same
-weights (tiny_config with the heart inference overrides).  The JAX
+weights (tiny_config with the heart inference overrides, at 'beginning'
+and at 'finetune', whose 2x U-Net output is the label volume).  The JAX
 detector reads ``native.available()`` in ``__init__``; it is patched to
 False inside the test so both take the NumPy mold.  Criteria: the molded
 int8 wire bit for bit; rois, class ids equal; scores to rtol 1e-5; label
@@ -58,8 +59,10 @@ def test_mold_matches_jax(shape):
 
 
 @pytest.mark.parametrize("overrides", [HEART, dict(detection_max_instances=1,
-                                                    approx_topk=False)],
-                         ids=["heart_fast", "bf16_wire_probs"])
+                                                    approx_topk=False),
+                                       dict(HEART, stage="finetune")],
+                         ids=["heart_fast", "bf16_wire_probs",
+                              "heart_fast_finetune"])
 def test_detect_matches_jax(monkeypatch, overrides):
     monkeypatch.setattr(native, "available", lambda: False)
     jcfg = tiny_config(**overrides, nms_backend="scan")
@@ -87,11 +90,11 @@ def test_detector_without_cuda_raises():
         Detector(cfg, weights.init_params(cfg))
 
 
-def test_load_npz_consumes_every_leaf():
-    path = os.path.join(ROOT, "weights", "heart_synth.npz")
-    cfg = pconfig.heart_inference_config("beginning")
+def _load_whole(name, stage):
+    path = os.path.join(ROOT, "weights", name)
+    cfg = pconfig.heart_inference_config(stage)
     params, meta = weights.load_npz(path, cfg)
-    assert meta["stage"] == "beginning"
+    assert meta["stage"] == stage
     assert meta["tag"] == "synthetic-60ep-bf16"
     with np.load(path) as z:
         n_leaves = sum(k.startswith("params/") for k in z.files)
@@ -102,6 +105,16 @@ def test_load_npz_consumes_every_leaf():
                                   w.astype(np.float32).transpose(4, 3, 0, 1, 2))
     assert {k: tuple(v.shape) for k, v in flat.items()} == \
         weights.layout(cfg)
+
+
+def test_load_npz_consumes_every_leaf():
+    _load_whole("heart_synth.npz", "beginning")
+
+
+def test_load_npz_finetune_consumes_every_leaf():
+    """The finetune checkpoint, out_upscale included, under the finetune
+    inference config."""
+    _load_whole("heart_synth_ft.npz", "finetune")
 
 
 def test_params_from_numpy_rejects_unused_missing_and_misshapen():

@@ -148,7 +148,20 @@ def test_unet_beginning(shared):
 
 
 def test_unet_finetune_is_not_ported(shared):
-    _, _, _, tp = shared
-    with pytest.raises(NotImplementedError):
-        apply_unet(tp["mask"]["unet"], torch.zeros(1, 1, 16, 16, 16),
-                   stage="finetune")
+    """The finetune stage, ported since this test's name was given: the
+    dense U-Net ends in the 2x upscale head (``upsample2_conv_residual``,
+    explicit form here, the phase form on the JAX side as
+    ``apply_mask_head`` passes it), so a 16^3 crop gives 32^3 logits.
+    Same tolerance as the 'beginning' U-Net."""
+    jcfg, _, jp, tp = shared
+    crops = np.random.default_rng(3).normal(
+        size=(1, *jcfg.mask_shape, 1)).astype(np.float32)
+    want = jax.jit(lambda p, x: jax_unet(p, x, stage="finetune",
+                                         head_impl="phase",
+                                         up_impl="phase"))(
+        jp["mask"]["unet"], jnp.asarray(crops))
+    got = apply_unet(tp["mask"]["unet"],
+                     torch.from_numpy(_ncdhw(crops).copy()), stage="finetune")
+    assert tuple(got.shape) == (1, jcfg.num_classes, 32, 32, 32)
+    np.testing.assert_allclose(got.numpy(), _ncdhw(want), rtol=1e-4,
+                               atol=2e-4)
