@@ -116,7 +116,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cfun_sorted_nms_scratch_words.argtypes = [ctypes.c_int]
     lib.cfun_sorted_nms_scratch_words.restype = ctypes.c_longlong
     lib.cfun_fused_conv3d.argtypes = [ptr, ptr, ptr, ptr] + \
-        [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ptr, ptr, ptr]
+        [ctypes.c_int] * 7 + [ctypes.c_float, ptr, ptr, ptr]
     lib.cfun_fused_conv3d.restype = ctypes.c_int
     lib.cfun_fused_conv3d_tiles.argtypes = [ctypes.c_int] * 3
     lib.cfun_fused_conv3d_tiles.restype = ctypes.c_int

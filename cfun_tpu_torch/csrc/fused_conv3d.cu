@@ -9,7 +9,7 @@
 //   sums = [sum(y), sum(y^2)] per (b, c_out), from the f32 accumulator
 // x [B, C_in, D, H, W] bf16; w [C_out, C_in * 27] bf16 (the port's
 // [C_out, C_in, 3, 3, 3] as it lies in memory); scale, shift [B, C_in] f32;
-// y [B, C_out, D, H, W] bf16 or f32.  A halo position outside the volume
+// y [B, C_out, D, H, W] bf16.  A halo position outside the volume
 // holds 0, not lrelu(shift): the affine must not leak into the padding.
 //
 // What bounds it on this card: at the U-Net's shapes the conv does
@@ -56,7 +56,7 @@ fused_conv3d_kernel(const __nv_bfloat16* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ shift, int C, int CO, int D,
                     int H, int W, int tiles_h, int tiles_w, int pre_lrelu,
-                    float alpha, int out_f32, void* __restrict__ y,
+                    float alpha, __nv_bfloat16* __restrict__ y,
                     float* __restrict__ partial) {
   __shared__ __align__(16) float act[kCIB * kHalo];
   __shared__ __align__(16) float ws[kCIB * 27 * kCOB];
@@ -166,11 +166,7 @@ fused_conv3d_kernel(const __nv_bfloat16* __restrict__ x,
       const float v = acc[j][c];
       const size_t o = ((size_t)b * CO + co) * vol + gz * plane +
                        (size_t)gy * W + gx;
-      if (out_f32) {
-        static_cast<float*>(y)[o] = v;
-      } else {
-        static_cast<__nv_bfloat16*>(y)[o] = __float2bfloat16_rn(v);
-      }
+      y[o] = __float2bfloat16_rn(v);
       s0[c] += v;
       s1[c] += v * v;
     }
@@ -219,7 +215,7 @@ int cfun_fused_conv3d_tiles(int D, int H, int W) {
 
 int cfun_fused_conv3d(const void* x, const void* w, const void* scale,
                       const void* shift, int B, int C, int CO, int D, int H,
-                      int W, int pre_lrelu, float alpha, int out_f32, void* y,
+                      int W, int pre_lrelu, float alpha, void* y,
                       void* partial, void* stream) {
   if (B < 1 || C < 1 || CO < 1 || D < 1 || H < 1 || W < 1) {
     return (int)cudaErrorInvalidValue;
@@ -231,7 +227,7 @@ int cfun_fused_conv3d(const void* x, const void* w, const void* scale,
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
       static_cast<const float*>(shift), C, CO, D, H, W, th, tw, pre_lrelu,
-      alpha, out_f32, y, static_cast<float*>(partial));
+      alpha, static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial));
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ Port of ``cfun_tpu/ops/pallas_conv.py`` (the Pallas TPU kernel ``_kernel``
 launched by ``fused_conv3d``, and the helpers ``in_affine_from_sums`` and
 ``identity_affine``).  The kernel is ``csrc/fused_conv3d.cu``, built by
 ``_build.py`` and bound with ctypes; its header comment gives the design.
-``fused_conv3d`` launches it for CUDA tensors and uses
-``fused_conv3d_reference`` only for CPU tensors.
+``fused_conv3d`` launches it for CUDA tensors, which take bf16 output only,
+and uses ``fused_conv3d_reference`` only for CPU tensors.
 
 The function, over channel-first volumes::
 
@@ -21,6 +21,7 @@ holds zeros, not ``lrelu(shift)``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -28,9 +29,11 @@ import torch
 import torch.nn.functional as F
 
 # Kernel launches made by ``fused_conv3d`` (one per call on CUDA tensors),
-# and calls it answered with the plain version (one per call on CPU
-# tensors).  chip_smoke.py and the tests reset and read them.
+# the same launches by shape (B, C_in, C_out, D, H, W), and calls it
+# answered with the plain version (one per call on CPU tensors).
+# chip_smoke.py and the tests reset and read them.
 launches = 0
+launch_shapes: collections.Counter = collections.Counter()
 cpu_calls = 0
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -88,7 +91,8 @@ def fused_conv3d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """``conv3d(lrelu(x * scale + shift))`` with output moments; see
     :func:`fused_conv3d_reference` for the contract.  x is bfloat16 and,
     on CUDA, contiguous; w is cast to bfloat16.  CUDA tensors go to the
-    kernel, CPU tensors to the plain version."""
+    kernel, which writes bfloat16 y only; CPU tensors to the plain
+    version."""
     global launches, cpu_calls
     _check(x, w, scale, shift, out_dtype)
     if x.device.type == "cpu":
@@ -101,6 +105,9 @@ def fused_conv3d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if not (x.is_contiguous() and scale.is_contiguous()
             and shift.is_contiguous()):
         raise ValueError("fused_conv3d takes contiguous x, scale and shift")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the fused_conv3d kernel writes bfloat16 y, got "
+                        f"out_dtype {out_dtype}")
     from cfun_tpu_torch import _build
 
     lib = _build.library()
@@ -118,12 +125,13 @@ def fused_conv3d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             ctypes.c_void_p(scale.data_ptr()),
             ctypes.c_void_p(shift.data_ptr()), b, c, c_out, d, h, wd,
             int(pre_lrelu), ctypes.c_float(alpha),
-            int(out_dtype == torch.float32), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()),
             ctypes.c_void_p(partial.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_conv3d kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launch_shapes[(b, c, c_out, d, h, wd)] += 1
     return y, partial.sum(dim=1)
 
 

@@ -10,6 +10,7 @@ tensors and uses ``sorted_nms_reference`` only for CPU tensors.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -17,9 +18,11 @@ import torch
 
 from cfun_tpu_torch.ops.boxes import pairwise_iou
 
-# Kernel launches made by ``sorted_nms`` (one per call on a CUDA tensor);
-# chip_smoke.py resets it and reads it around the served requests.
+# Kernel launches made by ``sorted_nms`` (one per call on a CUDA tensor),
+# and the same launches by shape (N, max_out); chip_smoke.py resets and
+# reads them around the served requests.
 launches = 0
+launch_shapes: collections.Counter = collections.Counter()
 
 
 def sorted_nms_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -107,4 +110,5 @@ def sorted_nms(boxes: torch.Tensor, valid: torch.Tensor,
         raise RuntimeError(f"sorted_nms kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launch_shapes[(n, max_out)] += 1
     return idx, keep

@@ -17,26 +17,32 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           detections, and the kernel is held against its plain version on
           the NMS inputs the served graph produced
   k2      holds the fused-conv kernel against its plain PyTorch version
-          on edge cases and at the 9 shapes the fused U-Net gives it (y
-          within one bf16 ulp, moments to 1e-4, two launches bit-equal),
-          and times it there beside its bound, the plain version and
-          cuDNN's bf16 conv alone
+          on edge cases (y within one bf16 ulp, moments to 1e-4, two
+          launches bit-equal)
   serve_fused  the same three requests with the fused U-Net
-          (pallas_unet=True): K2 12 times a request, the same detections
-          as 'serve', and on one served crop at full size the fused and
-          the dense bf16 U-Net held against the dense f32 one (TF32 off)
+          (pallas_unet=True): K2 12 times a request at the shapes of
+          K2_SERVED, by the kernel's own record of its launches, the same
+          detections as 'serve', and on one served crop at full size the
+          fused and the dense bf16 U-Net held against the dense f32 one
+          (TF32 off)
   serve_ft  stage 'finetune' with the fused U-Net and
-          weights/heart_synth_ft.npz: three requests, 192^3 label volumes,
-          and the same criterion against the dense finetune U-Net
+          weights/heart_synth_ft.npz: three requests, K2 at the same
+          shapes, 192^3 label volumes, and the same criterion against the
+          dense finetune U-Net
+  k2_served  the fused-conv kernel at each shape serve_fused launched it
+          at, as recorded there: checked as in 'k2', and timed beside its
+          bound, the plain version and cuDNN's bf16 conv alone; weighted
+          by the launches recorded a request
   profile where a served request's device time goes (torch.profiler), on
           the dense, fused and finetune paths, and K1's device time
           without the host's launch cost (CUDA-graph replay; K2's is
-          taken in phase k2)
+          taken in phase k2_served)
   small   the port on the card against the port on the CPU (plain
           versions, float32, TF32 off) on the tiny config
 
-Each served phase sets every kernel's launch count to 0 just before its
-three requests and reads the counts just after.
+Each served phase sets every kernel's launch count and its record of
+launch shapes to 0 just before its three requests and reads them just
+after.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
@@ -140,11 +146,14 @@ def k2_bound_ms(b, c_in, c_out, v):
     return t_bytes * 1e3, "bytes"
 
 
-# The fused U-Net's K2 calls at a 96^3 crop and base 20 (min_fused_voxels
-# 4096): (C_in, C_out, edge, calls a detection).
-K2_SERVED = ((20, 20, 96, 2), (40, 20, 96, 1), (40, 40, 96, 1),
-             (40, 40, 48, 2), (80, 40, 48, 1), (80, 80, 48, 1),
-             (80, 80, 24, 2), (160, 80, 24, 1), (160, 160, 24, 1))
+# The K2 launches a request that the fused U-Net must make at a 96^3 crop,
+# base 20 and min_fused_voxels 4096 with one detection a request, by
+# (B, C_in, C_out, D, H, W): serve_fused checks its recorded launches
+# against this table.
+K2_SERVED = {(1, ci, co, n, n, n): calls for ci, co, n, calls in (
+    (20, 20, 96, 2), (40, 20, 96, 1), (40, 40, 96, 1), (40, 40, 48, 2),
+    (80, 40, 48, 1), (80, 80, 48, 1), (80, 80, 24, 2), (160, 80, 24, 1),
+    (160, 160, 24, 1))}
 # (B, C_in, C_out, D, H, W, pre_lrelu): D = 1, B = 2, sizes and channel
 # counts that are not multiples of the kernel's tiles and chunks
 K2_EDGE = ((1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
@@ -368,9 +377,10 @@ def kernel_device_ms(call, names, reps=20):
 
 def serve_three(det, vols, counters, label):
     """One warm-up request (cuDNN set-up, not counted), then every kernel
-    launch count set to 0, three requests through ``Detector.detect``, and
-    the counts read just after.  Checks each result's shape, labels and
-    scores.  Returns (results, {kernel: launches}, detections found)."""
+    launch count and launch-shape record set to 0, three requests through
+    ``Detector.detect``, and both read just after.  Checks each result's
+    shape, labels and scores.  Returns (results, {kernel: launches},
+    {kernel: {shape: launches}}, detections found)."""
     import numpy as np
     import torch
 
@@ -380,12 +390,15 @@ def serve_three(det, vols, counters, label):
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():
         mod.launches = 0
+        mod.launch_shapes.clear()
     results, timings = [], []
     for vol in vols:
         results.append(det.detect(vol))
         timings.append(dict(det.last_timings))
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in counters.items()}
+    shapes = {name: dict(mod.launch_shapes)
+              for name, mod in counters.items()}
 
     n_found = 0
     for i, (vol, res, t) in enumerate(zip(vols, results, timings)):
@@ -405,9 +418,9 @@ def serve_three(det, vols, counters, label):
               f"labelled voxels {int((res['mask'] > 0).sum())}",
               flush=True)
     print(f"{label}: served 3 requests, {n_found} detection(s), launches "
-          f"{launches}; max_memory_allocated "
+          f"{launches} by shape {shapes}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B", flush=True)
-    return results, launches, n_found
+    return results, launches, shapes, n_found
 
 
 def capture_crop(cfun, det, vol):
@@ -490,29 +503,6 @@ def main() -> int:
                      f"edge B={b} {ci}->{co} {d}x{h}x{w} pre_lrelu={pre}")
         print(f"k2 within tolerance and deterministic on {len(K2_EDGE)} "
               f"edge cases", flush=True)
-        k2_shapes = []
-        for i, (ci, co, n, calls) in enumerate(K2_SERVED):
-            args = k2_inputs(1, ci, co, n, n, n, 200 + i, dev)
-            err = k2_check(k2, args, True, f"served {ci}->{co} {n}^3")
-            x, wt, scale, shift = args
-            w16 = wt.to(torch.bfloat16)
-            ms = cuda_ms(lambda: k2.fused_conv3d(*args), 50)
-            plain_ms = cuda_ms(lambda: k2.fused_conv3d_reference(*args), 10)
-            library_ms = cuda_ms(
-                lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
-            device_ms, kernel_ms = kernel_device_ms(
-                lambda: k2.fused_conv3d(*args), ("fused_conv3d_kernel",))
-            bound, by = k2_bound_ms(1, ci, co, n ** 3)
-            k2_shapes.append({
-                "shape": f"{ci}->{co} @{n}^3", "calls_per_detection": calls,
-                "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms, "max_abs_err": err})
-            print(f"k2 {ci}->{co} @{n}^3 x{calls}: kernel {ms:.4f} ms "
-                  f"(device {device_ms:.4f} graph / {kernel_ms:.4f} "
-                  f"profiler), plain {plain_ms:.4f} ms, cuDNN bf16 conv "
-                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by}),"
-                  f" max err {err:.3g}", flush=True)
 
     with phase("serve"):
         cfg = port_config.heart_inference_config("beginning",
@@ -523,7 +513,8 @@ def main() -> int:
               f"stage={meta.get('stage')}", flush=True)
         det = Detector(cfg, params)
         vols = [synth_heart(seed) for seed in range(3)]
-        results, served, n_found = serve_three(det, vols, counters, "serve")
+        results, served, served_shapes, n_found = serve_three(
+            det, vols, counters, "serve")
         served_launches = served["sorted_nms"]
         check(served_launches >= 1, "the served path launched sorted_nms")
         check(served_launches == 6, "two sorted_nms launches per request")
@@ -551,6 +542,13 @@ def main() -> int:
         print(f"plain-NMS graph: same detections; labels agree {agree}",
               flush=True)
         check(len(seen) == 2, "two NMS sites per request")
+        seen_shapes = {}
+        for boxes, _, _, k in seen:
+            key = (boxes.shape[0], k)
+            seen_shapes[key] = seen_shapes.get(key, 0) + 3
+        check(served_shapes["sorted_nms"] == seen_shapes,
+              f"the served K1 launches by shape {served_shapes['sorted_nms']}"
+              f" are those of the NMS inputs taken here, 3x {seen_shapes}")
 
         kern = []
         for boxes, valid, thr, k in seen:
@@ -577,10 +575,16 @@ def main() -> int:
         fcfg = port_config.heart_inference_config(
             "beginning", nms_backend="pallas", pallas_unet=True)
         fdet = Detector(fcfg, params)
-        fresults, fused_launches, _ = serve_three(fdet, vols, counters,
-                                                  "serve_fused")
+        fresults, fused_launches, fused_shapes, _ = serve_three(
+            fdet, vols, counters, "serve_fused")
         check(fused_launches["fused_conv3d"] == 36,
               f"12 K2 launches a request, got {fused_launches}")
+        k2_record = fused_shapes["fused_conv3d"]
+        check(sum(k2_record.values()) == fused_launches["fused_conv3d"],
+              f"K2's shape record {k2_record} adds up to its launches")
+        check({s: n / 3 for s, n in k2_record.items()} == K2_SERVED,
+              f"K2 launches a request by (B, C_in, C_out, D, H, W): "
+              f"recorded {k2_record} over 3 requests, want {K2_SERVED}")
         check(fused_launches["sorted_nms"] == 6,
               f"two K1 launches a request, got {fused_launches}")
         for i, (rd, rf) in enumerate(zip(results, fresults)):
@@ -610,9 +614,13 @@ def main() -> int:
         ftdet = Detector(tcfg_ft, params_ft)
         check(ftdet.labels_shape == (1, 192, 192, 192),
               f"finetune labels shape {ftdet.labels_shape}")
-        _, ft_launches, _ = serve_three(ftdet, vols, counters, "serve_ft")
+        _, ft_launches, ft_shapes, _ = serve_three(ftdet, vols, counters,
+                                                   "serve_ft")
         check(ft_launches["fused_conv3d"] == 36,
               f"12 K2 launches a request, got {ft_launches}")
+        check(ft_shapes["fused_conv3d"] == k2_record,
+              f"finetune K2 shapes {ft_shapes['fused_conv3d']} are the "
+              f"fused 'beginning' path's {k2_record}")
         check(ft_launches["sorted_nms"] == 6,
               f"two K1 launches a request, got {ft_launches}")
         wire, window, _ = ftdet.mold(vols[0])
@@ -626,6 +634,34 @@ def main() -> int:
         crit_ft = unet_criterion(apply_unet, apply_unet_fused,
                                  ftdet.params["mask"]["unet"], crop,
                                  "finetune")
+
+    with phase("k2_served"):
+        k2_shapes = []
+        for i, (shape, n_rec) in enumerate(sorted(k2_record.items())):
+            b, ci, co, d, h, w = shape
+            calls = n_rec / 3
+            args = k2_inputs(b, ci, co, d, h, w, 200 + i, dev)
+            name = f"B={b} {ci}->{co} @{d}x{h}x{w}"
+            err = k2_check(k2, args, True, f"served {name}")
+            x, wt, scale, shift = args
+            w16 = wt.to(torch.bfloat16)
+            ms = cuda_ms(lambda: k2.fused_conv3d(*args), 50)
+            plain_ms = cuda_ms(lambda: k2.fused_conv3d_reference(*args), 10)
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
+            device_ms, kernel_ms = kernel_device_ms(
+                lambda: k2.fused_conv3d(*args), ("fused_conv3d_kernel",))
+            bound, by = k2_bound_ms(b, ci, co, d * h * w)
+            k2_shapes.append({
+                "shape": name, "launches": n_rec, "calls_per_request": calls,
+                "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms, "max_abs_err": err})
+            print(f"k2 {name} x{calls:g} a request: kernel {ms:.4f} ms "
+                  f"(device {device_ms:.4f} graph / {kernel_ms:.4f} "
+                  f"profiler), plain {plain_ms:.4f} ms, cuDNN bf16 conv "
+                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by}),"
+                  f" max err {err:.3g}", flush=True)
 
     with phase("profile"):
         busy_dense, _ = profile_requests(det, vols, "serve")
@@ -678,15 +714,16 @@ def main() -> int:
     print(f"total {total:.3f} s", flush=True)
     per_req_ms = sum(s["ms"] for s in kern)
 
-    def per_detection(key):
-        return sum(s[key] * s["calls_per_detection"] for s in k2_shapes)
+    def per_request(key):
+        return sum(s[key] * s["calls_per_request"] for s in k2_shapes)
 
     line = {"kernels": [{
         "name": "sorted_nms", "route": "cuda",
         "source": "cfun_tpu_torch/csrc/sorted_nms.cu",
         "replaces": "cfun_tpu/ops/pallas_nms.py:93",
         "shape": " + ".join(s["shape"] for s in kern),
-        "launches": served_launches, "launches_per_request": 2,
+        "launches": served_launches,
+        "launches_per_request": served_launches / 3,
         "max_abs_err": max(s["max_abs_err"] for s in kern),
         "ms": per_req_ms,
         "plain_ms": sum(s["plain_ms"] for s in kern),
@@ -700,20 +737,20 @@ def main() -> int:
         "name": "fused_conv3d", "route": "cuda",
         "source": "cfun_tpu_torch/csrc/fused_conv3d.cu",
         "replaces": "cfun_tpu/ops/pallas_conv.py:179",
-        "shape": "12 calls a detection at base 20: " + " + ".join(
-            f"{s['calls_per_detection']}x {s['shape']}" for s in k2_shapes),
+        "shape": " + ".join(f"{s['calls_per_request']:g}x {s['shape']}"
+                            for s in k2_shapes),
         "launches": fused_launches["fused_conv3d"],
-        "launches_per_request": 12,
+        "launches_per_request": fused_launches["fused_conv3d"] / 3,
         "launches_by_path": {"serve": served["fused_conv3d"],
                              "serve_fused": fused_launches["fused_conv3d"],
                              "serve_ft": ft_launches["fused_conv3d"]},
         "max_abs_err": max(s["max_abs_err"] for s in k2_shapes),
-        "ms": per_detection("ms"), "device_ms": per_detection("device_ms"),
-        "plain_ms": per_detection("plain_ms"),
-        "bound_ms": per_detection("bound_ms"),
+        "ms": per_request("ms"), "device_ms": per_request("device_ms"),
+        "plain_ms": per_request("plain_ms"),
+        "bound_ms": per_request("bound_ms"),
         "bound_by": max(k2_shapes, key=lambda s: s["bound_ms"] *
-                        s["calls_per_detection"])["bound_by"],
-        "library_ms": per_detection("library_ms"),
+                        s["calls_per_request"])["bound_by"],
+        "library_ms": per_request("library_ms"),
         "library": "torch.nn.functional.conv3d in bf16 (cuDNN), the conv "
                    "alone: no PyTorch call computes the fused function",
         "unet_criterion": {"beginning": crit_fused, "finetune": crit_ft},

@@ -84,9 +84,11 @@ def test_fused_conv_matches_plain(cuda, b, c, co, d, h, w, pre_lrelu):
     shift = 0.3 * torch.randn((b, c), generator=g)
     args = [t.to(cuda) for t in (x, wt, scale, shift)]
     before = k2.launches
+    shape_before = k2.launch_shapes[(b, c, co, d, h, w)]
     y, s = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
     y2, s2 = k2.fused_conv3d(*args, pre_lrelu=pre_lrelu)
     assert k2.launches == before + 2
+    assert k2.launch_shapes[(b, c, co, d, h, w)] == shape_before + 2
     assert torch.equal(y.view(torch.int16), y2.view(torch.int16))
     assert torch.equal(s, s2)
     ry, rs = k2.fused_conv3d_reference(*args, pre_lrelu=pre_lrelu)
@@ -110,3 +112,15 @@ def test_fused_conv_rejects_noncontiguous(cuda):
     w = torch.zeros((4, 4, 3, 3, 3), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         k2.fused_conv3d(x.transpose(2, 4), w, sc, sh)
+
+
+def test_fused_conv_kernel_writes_bf16_only(cuda):
+    """The kernel has no f32 output; a CUDA call asking for one raises
+    before any launch (the plain version on the CPU still takes it)."""
+    x = torch.zeros((1, 4, 8, 8, 8), dtype=torch.bfloat16, device=cuda)
+    sc, sh = k2.identity_affine(1, 4, device=cuda)
+    w = torch.zeros((4, 4, 3, 3, 3), device=cuda)
+    before = k2.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        k2.fused_conv3d(x, w, sc, sh, out_dtype=torch.float32)
+    assert k2.launches == before
