@@ -28,15 +28,18 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
 NVCC_TIMEOUT_S = 120
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took in this process (0.0 when the library was
-# already on disk); chip_smoke.py prints it
+# already on disk), and what ptxas reported for each kernel (registers,
+# shared memory, spills); chip_smoke.py prints both
 last_build_seconds: Optional[float] = None
+last_build_log: str = ""
 
 
 def sources() -> List[str]:
@@ -78,7 +81,7 @@ def nvcc_command(nvcc: str, srcs: List[str], out: str) -> List[str]:
 def build() -> str:
     """Compile the sources unless their library is already on disk;
     returns the library's path."""
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
@@ -98,6 +101,7 @@ def build() -> str:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}:\n"
                 f"{proc.stderr.strip() or proc.stdout.strip()}")
+        last_build_log = proc.stderr
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -115,7 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cfun_sorted_nms_max_n.restype = ctypes.c_int
     lib.cfun_sorted_nms_scratch_words.argtypes = [ctypes.c_int]
     lib.cfun_sorted_nms_scratch_words.restype = ctypes.c_longlong
-    lib.cfun_fused_conv3d.argtypes = [ptr, ptr, ptr, ptr] + \
+    lib.cfun_fused_conv3d.argtypes = \
+        [ptr, ptr, ctypes.c_int, ptr, ctypes.c_int, ptr, ptr, ptr] + \
         [ctypes.c_int] * 7 + [ctypes.c_float, ptr, ptr, ptr]
     lib.cfun_fused_conv3d.restype = ctypes.c_int
     lib.cfun_fused_conv3d_tiles.argtypes = [ctypes.c_int] * 3

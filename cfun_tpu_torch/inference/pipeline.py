@@ -105,7 +105,10 @@ class Detector:
             detections = out.detections.cpu().numpy()
             t2 = time.perf_counter()
             kept = out.det_valid.cpu().numpy()
-            masks = out.mask_probs.float().cpu().numpy()
+            if out.mask_labels is not None:  # fast path, unpacked
+                masks = out.mask_labels.cpu().numpy()
+            else:
+                masks = out.mask_probs.float().cpu().numpy()
         result = self.unmold(detections, kept, masks, orig_shape, window)
         t3 = time.perf_counter()
         self.last_timings = {"mold": t1 - t0, "device": t2 - t1,

@@ -4,7 +4,9 @@ kernel and its plain PyTorch version.
 Port of ``cfun_tpu/ops/pallas_conv.py`` (the Pallas TPU kernel ``_kernel``
 launched by ``fused_conv3d``, and the helpers ``in_affine_from_sums`` and
 ``identity_affine``).  The kernel is ``csrc/fused_conv3d.cu``, built by
-``_build.py`` and bound with ctypes; its header comment gives the design.
+``_build.py`` and bound with ctypes; its header comment gives the design
+(a bf16 implicit GEMM on the tensor cores, whose weight layout
+``pack_weights`` defines).
 ``fused_conv3d`` launches it for CUDA tensors, which take bf16 output only,
 and uses ``fused_conv3d_reference`` only for CPU tensors.
 
@@ -60,6 +62,75 @@ def fused_conv3d_reference(x: torch.Tensor, w: torch.Tensor,
     return y32.to(out_dtype), sums
 
 
+CHUNK = 32  # input channels the kernel stages at a time
+
+
+def chunk_groups(c_in: int):
+    """The kernel's walk over C_in: (first channel, groups of 8) of each
+    chunk of up to ``CHUNK`` channels; the last group is zero-padded."""
+    return [(ci0, min(CHUNK // 8, -(-(c_in - ci0) // 8)))
+            for ci0 in range(0, c_in, CHUNK)]
+
+
+def _fragment_order(wk: torch.Tensor) -> torch.Tensor:
+    """[C_out, C_in, 27] -> [steps, ceil(C_out / 8), 32, 4], zero-padded;
+    see :func:`pack_weights`."""
+    c_out, c_in = wk.shape[:2]
+    n_pad = -(-c_out // 8) * 8
+    c_pad = -(-c_in // 8) * 8
+    wk = F.pad(wk, (0, 0, 0, c_pad - c_in, 0, n_pad - c_out))
+    parts = []
+    for ci0, g in chunk_groups(c_in):
+        steps = -(-27 * g // 2)
+        # [N, group, ci, tap] -> [N, tap, group, ci]: K = (tap * g + group)
+        # * 8 + ci
+        part = wk[:, ci0:ci0 + 8 * g].reshape(n_pad, g, 8, 27)
+        part = part.permute(0, 3, 1, 2).reshape(n_pad, 27 * g * 8)
+        part = F.pad(part, (0, steps * 16 - 27 * g * 8))
+        # [ntile, n % 8, step, k // 8, (k % 8) // 2, k % 2]
+        part = part.reshape(n_pad // 8, 8, steps, 2, 4, 2)
+        parts.append(part.permute(2, 0, 1, 4, 3, 5).reshape(
+            steps, n_pad // 8, 32, 4))
+    return torch.cat(parts)
+
+
+# (C_out, C_in, device) -> pack_index's map: the layout depends on the
+# shapes alone, so one gather packs a call's w
+_pack_index: dict = {}
+
+
+def pack_index(c_out: int, c_in: int, device) -> torch.Tensor:
+    """Where each value of :func:`pack_weights` comes from: an int32 index
+    into w [C_out, C_in, 3, 3, 3] flattened, C_out * C_in * 27 where the
+    layout pads with zero.  Built once per shape and device."""
+    key = (c_out, c_in, torch.device(device))
+    idx = _pack_index.get(key)
+    if idx is None:
+        n = c_out * c_in * 27
+        # position + 1 of every value, 0 where the layout pads
+        pos = torch.arange(1, n + 1, dtype=torch.float64)
+        idx = _fragment_order(pos.reshape(c_out, c_in, 27)).long() - 1
+        idx = torch.where(idx < 0, n, idx).to(torch.int32).to(device)
+        _pack_index[key] = idx
+    return idx
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """w [C_out, C_in, 3, 3, 3] -> the kernel's bf16 B fragments
+    [steps, ceil(C_out / 8), 32, 4], on w's device.
+
+    K is walked chunk by chunk (``chunk_groups``); within a chunk of G
+    groups, K slice kg = tap * G + group holds 8 input channels, and a
+    step of the mma (k = 16) takes slices 2s and 2s + 1, the last one
+    zero when 27 * G is odd.  For n8 tile j and lane l, the four values
+    are B[k][n] at n = 8j + l // 4 and k = 2(l % 4) + (0, 1, 8, 9): the
+    ``.col`` B operand of mma.m16n8k16, two bf16 a register.  Zero past
+    C_in and C_out.  The wrapper packs each call, with the same map,
+    in the launch that precedes the conv (``pack_weights_kernel``)."""
+    idx = pack_index(w.shape[0], w.shape[1], w.device)
+    return F.pad(w.reshape(-1).to(torch.bfloat16), (0, 1))[idx.long()]
+
+
 def _check(x, w, scale, shift, out_dtype) -> None:
     if x.dim() != 5:
         raise ValueError(f"x must be [B, C_in, D, H, W], got "
@@ -113,7 +184,9 @@ def fused_conv3d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     lib = _build.library()
     b, c, d, h, wd = x.shape
     c_out = w.shape[0]
-    w16 = w.to(torch.bfloat16).contiguous()
+    wc = w.contiguous()
+    idx = pack_index(c_out, c, x.device)
+    wp = torch.empty(idx.shape, dtype=torch.bfloat16, device=x.device)
     tiles = lib.cfun_fused_conv3d_tiles(d, h, wd)
     y = torch.empty((b, c_out, d, h, wd), dtype=out_dtype, device=x.device)
     partial = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
@@ -121,7 +194,9 @@ def fused_conv3d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cfun_fused_conv3d(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w16.data_ptr()),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wc.data_ptr()),
+            int(wc.dtype == torch.float32), ctypes.c_void_p(idx.data_ptr()),
+            idx.numel(), ctypes.c_void_p(wp.data_ptr()),
             ctypes.c_void_p(scale.data_ptr()),
             ctypes.c_void_p(shift.data_ptr()), b, c, c_out, d, h, wd,
             int(pre_lrelu), ctypes.c_float(alpha),

@@ -7,6 +7,8 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
+          and prints what ptxas reported for each (registers, shared
+          memory, spills)
   k1      holds the sorted-NMS kernel against its plain PyTorch version on
           edge cases (exact idx / keep) and times it at the served shapes
   serve   whole-heart inference at full width (192x320x320, stage
@@ -18,7 +20,8 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           the NMS inputs the served graph produced
   k2      holds the fused-conv kernel against its plain PyTorch version
           on edge cases (y within one bf16 ulp, moments to 1e-4, two
-          launches bit-equal)
+          launches bit-equal), among them C_in and C_out around the
+          kernel's pads and tiles, W = 1 and H, W off the output tile
   serve_fused  the same three requests with the fused U-Net
           (pallas_unet=True): K2 12 times a request at the shapes of
           K2_SERVED, by the kernel's own record of its launches, the same
@@ -31,8 +34,10 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           dense finetune U-Net
   k2_served  the fused-conv kernel at each shape serve_fused launched it
           at, as recorded there: checked as in 'k2', and timed beside its
-          bound, the plain version and cuDNN's bf16 conv alone; weighted
-          by the launches recorded a request
+          bound, the plain version and cuDNN's bf16 conv alone, with its
+          TFLOP/s, its share of the bound and its ratio to cuDNN's conv;
+          each shape and the sum weighted by the launches recorded a
+          request
   profile where a served request's device time goes (torch.profiler), on
           the dense, fused and finetune paths, and K1's device time
           without the host's launch cost (CUDA-graph replay; K2's is
@@ -146,6 +151,9 @@ def k2_bound_ms(b, c_in, c_out, v):
     return t_bytes * 1e3, "bytes"
 
 
+# the device kernels of one K2 call: the weights' repack, then the conv
+K2_KERNELS = ("pack_weights_kernel", "fused_conv3d_kernel")
+
 # The K2 launches a request that the fused U-Net must make at a 96^3 crop,
 # base 20 and min_fused_voxels 4096 with one detection a request, by
 # (B, C_in, C_out, D, H, W): serve_fused checks its recorded launches
@@ -155,11 +163,51 @@ K2_SERVED = {(1, ci, co, n, n, n): calls for ci, co, n, calls in (
     (80, 40, 48, 1), (80, 80, 48, 1), (80, 80, 24, 2), (160, 80, 24, 1),
     (160, 160, 24, 1))}
 # (B, C_in, C_out, D, H, W, pre_lrelu): D = 1, B = 2, sizes and channel
-# counts that are not multiples of the kernel's tiles and chunks
+# counts that are not multiples of the kernel's tiles and chunks; then
+# C_in of 8, 20, 24 and 25 (around the pad to 8 and the 32-channel
+# chunk), C_out of 24, 81 and 161 (around the 80-channel N tile), W = 1,
+# and H, W off the 2 x 8 x 8 output tile
 K2_EDGE = ((1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
            (2, 6, 5, 5, 7, 9, False), (1, 33, 47, 9, 9, 9, True),
            (1, 160, 160, 3, 5, 17, False), (1, 4, 160, 4, 8, 8, True),
-           (1, 160, 4, 4, 8, 8, True), (3, 20, 20, 7, 13, 11, True))
+           (1, 160, 4, 4, 8, 8, True), (3, 20, 20, 7, 13, 11, True),
+           (1, 8, 24, 3, 5, 1, True), (1, 20, 81, 4, 9, 10, False),
+           (2, 24, 161, 3, 7, 12, True), (1, 25, 24, 5, 11, 13, True),
+           (1, 40, 81, 3, 6, 1, True), (1, 20, 20, 5, 24, 24, True))
+
+
+def ptxas_summary(log):
+    """Per kernel of the build: (name, registers, static shared bytes,
+    spill stores, spill loads, stack bytes), from ptxas -v's report.  A
+    template instance of K2 is named by its <NTW, WN>."""
+    import re
+
+    out, name, props = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("fused_conv3d_kernel",
+                                     "pack_weights_kernel",
+                                     "iou_mask_kernel", "sweep_kernel")
+                         if k in mangled), mangled)
+            t = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?", mangled)
+            if t:
+                name += "<" + ",".join(v for v in t.groups() if v) + ">"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and name is not None:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "static_smem_bytes": int(m.group(2) or 0),
+                        "stack_bytes": props[0], "spill_stores": props[1],
+                        "spill_loads": props[2]})
+            name, props = None, (0, 0, 0)
+    return out
 
 
 def k2_inputs(b, c_in, c_out, d, h, w, seed, device):
@@ -484,6 +532,12 @@ def main() -> int:
         print(f"kernels {os.path.relpath(lib._name, ROOT)} built in "
               f"{_build.last_build_seconds:.3f} s from "
               f"{len(_build.sources())} source(s)", flush=True)
+        ptxas = ptxas_summary(_build.last_build_log)
+        for k in ptxas:
+            print(f"ptxas {k['kernel']}: {k['registers']} registers, "
+                  f"{k['static_smem_bytes']} B static smem, "
+                  f"{k['spill_stores']} B spill stores, {k['spill_loads']} "
+                  f"B spill loads, {k['stack_bytes']} B stack", flush=True)
 
     with phase("k1"):
         n_cases = 0
@@ -650,25 +704,44 @@ def main() -> int:
             library_ms = cuda_ms(
                 lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
             device_ms, kernel_ms = kernel_device_ms(
-                lambda: k2.fused_conv3d(*args), ("fused_conv3d_kernel",))
+                lambda: k2.fused_conv3d(*args), K2_KERNELS)
             bound, by = k2_bound_ms(b, ci, co, d * h * w)
+            flops = 2 * 27 * ci * co * d * h * w * b
             k2_shapes.append({
                 "shape": name, "launches": n_rec, "calls_per_request": calls,
                 "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms, "max_abs_err": err})
+                "library_ms": library_ms, "max_abs_err": err,
+                "flops": flops, "tflops": flops / ms * 1e-9,
+                "bound_share": bound / ms, "vs_library": ms / library_ms})
             print(f"k2 {name} x{calls:g} a request: kernel {ms:.4f} ms "
                   f"(device {device_ms:.4f} graph / {kernel_ms:.4f} "
                   f"profiler), plain {plain_ms:.4f} ms, cuDNN bf16 conv "
-                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by}),"
-                  f" max err {err:.3g}", flush=True)
+                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by});"
+                  f" {flops / ms * 1e-9:.1f} TFLOP/s, {bound / ms:.4f} of "
+                  f"the bound, {ms / library_ms:.3f}x cuDNN's time; max err "
+                  f"{err:.3g}", flush=True)
+        k2_req = {key: sum(s[key] * s["calls_per_request"]
+                           for s in k2_shapes)
+                  for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "library_ms", "flops")}
+        n_calls = sum(s["calls_per_request"] for s in k2_shapes)
+        print(f"k2 a request ({n_calls:g} calls): kernel "
+              f"{k2_req['ms']:.4f} ms (device {k2_req['device_ms']:.4f}), "
+              f"cuDNN bf16 conv alone "
+              f"{k2_req['library_ms']:.4f} ms, plain {k2_req['plain_ms']:.4f}"
+              f" ms, bound {k2_req['bound_ms']:.4f} ms; "
+              f"{k2_req['flops'] / k2_req['ms'] * 1e-9:.1f} TFLOP/s, "
+              f"{k2_req['bound_ms'] / k2_req['ms']:.4f} of the bound, "
+              f"{k2_req['ms'] / k2_req['library_ms']:.3f}x cuDNN's time",
+              flush=True)
 
     with phase("profile"):
         busy_dense, _ = profile_requests(det, vols, "serve")
         busy_fused, by_kernel = profile_requests(fdet, vols, "serve_fused")
         busy_ft, _ = profile_requests(ftdet, vols, "serve_ft")
         k2_busy = sum(ms for name, ms in by_kernel.items()
-                      if "fused_conv3d_kernel" in name)
+                      if any(k in name for k in K2_KERNELS))
         print(f"profile: K2 {k2_busy:.3f} ms of {busy_fused:.3f} ms device "
               f"busy a fused request (dense request {busy_dense:.3f} ms, "
               f"fused finetune request {busy_ft:.3f} ms)", flush=True)
@@ -713,10 +786,6 @@ def main() -> int:
     total = time.perf_counter() - _T0
     print(f"total {total:.3f} s", flush=True)
     per_req_ms = sum(s["ms"] for s in kern)
-
-    def per_request(key):
-        return sum(s[key] * s["calls_per_request"] for s in k2_shapes)
-
     line = {"kernels": [{
         "name": "sorted_nms", "route": "cuda",
         "source": "cfun_tpu_torch/csrc/sorted_nms.cu",
@@ -735,6 +804,8 @@ def main() -> int:
                              "serve_ft": ft_launches["sorted_nms"]},
         "per_shape": kern}, {
         "name": "fused_conv3d", "route": "cuda",
+        "route_note": "tensor cores (mma.sync m16n8k16 bf16, f32 "
+                      "accumulation), implicit GEMM",
         "source": "cfun_tpu_torch/csrc/fused_conv3d.cu",
         "replaces": "cfun_tpu/ops/pallas_conv.py:179",
         "shape": " + ".join(f"{s['calls_per_request']:g}x {s['shape']}"
@@ -745,12 +816,15 @@ def main() -> int:
                              "serve_fused": fused_launches["fused_conv3d"],
                              "serve_ft": ft_launches["fused_conv3d"]},
         "max_abs_err": max(s["max_abs_err"] for s in k2_shapes),
-        "ms": per_request("ms"), "device_ms": per_request("device_ms"),
-        "plain_ms": per_request("plain_ms"),
-        "bound_ms": per_request("bound_ms"),
+        "ms": k2_req["ms"], "device_ms": k2_req["device_ms"],
+        "plain_ms": k2_req["plain_ms"], "bound_ms": k2_req["bound_ms"],
         "bound_by": max(k2_shapes, key=lambda s: s["bound_ms"] *
                         s["calls_per_request"])["bound_by"],
-        "library_ms": per_request("library_ms"),
+        "library_ms": k2_req["library_ms"],
+        "tflops": k2_req["flops"] / k2_req["ms"] * 1e-9,
+        "bound_share": k2_req["bound_ms"] / k2_req["ms"],
+        "vs_library": k2_req["ms"] / k2_req["library_ms"],
+        "ptxas": [k for k in ptxas if k["kernel"].startswith(K2_KERNELS)],
         "library": "torch.nn.functional.conv3d in bf16 (cuDNN), the conv "
                    "alone: no PyTorch call computes the fused function",
         "unet_criterion": {"beginning": crit_fused, "finetune": crit_ft},

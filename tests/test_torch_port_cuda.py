@@ -72,7 +72,10 @@ def test_detector_card_matches_cpu(cuda):
 @pytest.mark.parametrize("b,c,co,d,h,w,pre_lrelu", [
     (1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
     (2, 6, 5, 5, 7, 9, False), (1, 33, 47, 9, 9, 9, True),
-    (1, 160, 160, 3, 5, 17, False), (3, 20, 20, 7, 13, 11, True)])
+    (1, 160, 160, 3, 5, 17, False), (3, 20, 20, 7, 13, 11, True),
+    (1, 8, 24, 3, 5, 1, True), (1, 20, 81, 4, 9, 10, False),
+    (2, 24, 161, 3, 7, 12, True), (1, 25, 24, 5, 11, 13, True),
+    (1, 40, 81, 3, 6, 1, True)])
 def test_fused_conv_matches_plain(cuda, b, c, co, d, h, w, pre_lrelu):
     """K2 against its plain version: y within one bf16 ulp of its
     magnitude plus 2^-16 of the sum of |terms| (the f32 sums'

@@ -60,10 +60,16 @@ def test_mold_matches_jax(shape):
 
 @pytest.mark.parametrize("overrides", [HEART, dict(detection_max_instances=1,
                                                     approx_topk=False),
-                                       dict(HEART, stage="finetune")],
+                                       dict(HEART, stage="finetune"),
+                                       dict(HEART, num_classes=17)],
                          ids=["heart_fast", "bf16_wire_probs",
-                              "heart_fast_finetune"])
+                              "heart_fast_finetune",
+                              "fast_unpacked_17_classes"])
 def test_detect_matches_jax(monkeypatch, overrides):
+    """Both detectors on one volume and shared weights.  With 17 classes
+    the fast path's labels do not fit the 4-bit packing: the graph returns
+    int8 labels unpacked and ``detect`` reads ``mask_labels``, as the JAX
+    ``_finish`` does."""
     monkeypatch.setattr(native, "available", lambda: False)
     jcfg = tiny_config(**overrides, nms_backend="scan")
     pcfg = pconfig.tiny_config(**overrides)

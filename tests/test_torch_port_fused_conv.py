@@ -165,3 +165,85 @@ def test_wrapper_rejects():
         k2.fused_conv3d(x, w, sc[:, :2], sh)
     with pytest.raises(TypeError, match="out_dtype"):
         k2.fused_conv3d(x, w, sc, sh, out_dtype=torch.float16)
+
+
+def _emulate_kernel(x, w, scale, shift, pre_lrelu):
+    """The implicit GEMM that ``csrc/fused_conv3d.cu`` runs, in float64 on
+    the CPU: the channel-last activated halo (zeros outside the volume and
+    past C_in, C_in padded to 8), K walked chunk by chunk as (tap, group
+    of 8 channels) slices two a k16 step, and B read from
+    ``pack_weights``' fragments by the mma's own lane map (C_out padded
+    to 8).  Returns y [B, C_out, D, H, W] float64."""
+    b, c, d, h, wd = x.shape
+    co = w.shape[0]
+    act = x.float() * scale[:, :, None, None, None] + \
+        shift[:, :, None, None, None]
+    if pre_lrelu:
+        act = F.leaky_relu(act, 0.01)
+    act = act.to(torch.bfloat16).double()
+    c8, n_pad = -(-c // 8) * 8, -(-co // 8) * 8
+    halo = torch.zeros(b, d + 2, h + 2, wd + 2, c8, dtype=torch.float64)
+    halo[:, 1:-1, 1:-1, 1:-1, :c] = act.permute(0, 2, 3, 4, 1)
+    packed = k2.pack_weights(w).double()
+    chunks = [(ci0, min(4, -(-(c - ci0) // 8))) for ci0 in range(0, c, 32)]
+    assert k2.chunk_groups(c) == chunks
+    assert packed.shape == (sum(-(-27 * g // 2) for _, g in chunks),
+                            n_pad // 8, 32, 4)
+    # lane l, value v of n8 tile j: B[2 (l % 4) + (0, 1, 8, 9)[v]][8j + l // 4]
+    lane = torch.arange(32)[:, None]
+    kk = 2 * (lane % 4) + torch.tensor([0, 1, 8, 9])[None, :]
+    nn = (lane // 4).expand(32, 4)
+    acc = torch.zeros(b * d * h * wd, n_pad, dtype=torch.float64)
+    step = 0
+    for ci0, g in chunks:
+        for s in range(-(-27 * g // 2)):
+            halves = []
+            for kg in (2 * s, 2 * s + 1):
+                if kg >= 27 * g:
+                    halves.append(torch.zeros(b * d * h * wd, 8,
+                                              dtype=torch.float64))
+                    continue
+                tap, grp = divmod(kg, g)
+                dz, dy, dx = tap // 9, (tap // 3) % 3, tap % 3
+                lo = ci0 + grp * 8
+                halves.append(halo[:, dz:dz + d, dy:dy + h, dx:dx + wd,
+                                   lo:lo + 8].reshape(-1, 8))
+            bmat = torch.zeros(16, n_pad, dtype=torch.float64)
+            for j in range(n_pad // 8):
+                bmat[kk, 8 * j + nn] = packed[step, j]
+            acc += torch.cat(halves, 1) @ bmat
+            step += 1
+    assert step == packed.shape[0]
+    return acc[:, :co].reshape(b, d, h, wd, co).permute(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("b,c,co,d,h,w,pre_lrelu", [
+    (2, 6, 5, 5, 7, 9, True), (1, 33, 47, 9, 9, 9, True),
+    (1, 8, 24, 3, 5, 1, True), (1, 20, 81, 4, 9, 10, False),
+    (1, 25, 161, 3, 5, 6, True), (1, 40, 20, 3, 4, 5, True)])
+def test_kernel_layout_emulation_matches_plain(b, c, co, d, h, w,
+                                               pre_lrelu):
+    """The kernel's padding and index maps, emulated, give the plain
+    version's sums: the emulation's float64 sums and a float64 conv of the
+    plain version's bf16 activation and weights, both rounded to f32 (the
+    kernel's and the plain version's rounding points), are equal."""
+    g = torch.Generator().manual_seed(c * 100 + co)
+    x = torch.randn((b, c, d, h, w), generator=g).to(torch.bfloat16)
+    wt = 0.1 * torch.randn((co, c, 3, 3, 3), generator=g)
+    scale = 1.0 + 0.2 * torch.randn((b, c), generator=g)
+    shift = 0.3 * torch.randn((b, c), generator=g)
+    got = _emulate_kernel(x, wt, scale, shift, pre_lrelu)
+    act = x.float() * scale[:, :, None, None, None] + \
+        shift[:, :, None, None, None]
+    if pre_lrelu:
+        act = F.leaky_relu(act, 0.01)
+    want = F.conv3d(act.to(torch.bfloat16).double(),
+                    wt.to(torch.bfloat16).double(), padding=1)
+    assert torch.equal(got.float(), want.float())
+    ry, _ = k2.fused_conv3d_reference(x, wt, scale, shift,
+                                      pre_lrelu=pre_lrelu)
+    _assert_y_close(got.to(torch.bfloat16).float().numpy(),
+                    ry.float().numpy(),
+                    F.conv3d(act.abs().double(),
+                             wt.to(torch.bfloat16).double().abs(),
+                             padding=1).numpy())
