@@ -117,8 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cfun_sorted_nms.restype = ctypes.c_int
     lib.cfun_sorted_nms_max_n.argtypes = []
     lib.cfun_sorted_nms_max_n.restype = ctypes.c_int
-    lib.cfun_sorted_nms_scratch_words.argtypes = [ctypes.c_int]
-    lib.cfun_sorted_nms_scratch_words.restype = ctypes.c_longlong
+    lib.cfun_sorted_nms_workspace_bytes.argtypes = [ctypes.c_int]
+    lib.cfun_sorted_nms_workspace_bytes.restype = ctypes.c_longlong
     lib.cfun_fused_conv3d.argtypes = \
         [ptr, ptr, ctypes.c_int, ptr, ctypes.c_int, ptr, ptr, ptr] + \
         [ctypes.c_int] * 7 + [ctypes.c_float, ptr, ptr, ptr]

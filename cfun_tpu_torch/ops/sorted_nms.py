@@ -11,8 +11,7 @@ tensors and uses ``sorted_nms_reference`` only for CPU tensors.
 from __future__ import annotations
 
 import collections
-import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -23,6 +22,8 @@ from cfun_tpu_torch.ops.boxes import pairwise_iou
 # reads them around the served requests.
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
+# the kernel's workspace by (device index, stream, N); see _workspace
+_workspaces: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def sorted_nms_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -72,40 +73,54 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor, max_out: int) -> None:
         raise ValueError(f"max_out must be >= 1, got {max_out}")
 
 
+def _workspace(lib, n: int, device: torch.device, stream: int
+               ) -> torch.Tensor:
+    """The kernel's workspace for N boxes on ``stream``: its tiles, valid
+    words and the ticket that picks the sweeping block, zeroed once and
+    held for the process.  The kernel resets the ticket itself, so calls
+    in one stream's order (or replays of a CUDA graph captured on it)
+    share it; another stream gets its own."""
+    key = (device.index, stream, n)
+    ws = _workspaces.get(key)
+    if ws is None:
+        if n > lib.cfun_sorted_nms_max_n():
+            raise ValueError(f"the sorted_nms kernel takes N <= "
+                             f"{lib.cfun_sorted_nms_max_n()}, got {n}")
+        ws = torch.zeros(lib.cfun_sorted_nms_workspace_bytes(n),
+                         dtype=torch.uint8, device=device)
+        _workspaces[key] = ws
+    return ws
+
+
 def sorted_nms(boxes: torch.Tensor, valid: torch.Tensor,
                iou_threshold: float, max_out: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over score-descending [N, 6] boxes; see
     :func:`sorted_nms_reference` for the contract.  CUDA tensors go to the
-    kernel (N <= 4096), CPU tensors to the plain version."""
+    kernel (N <= 4096, one launch), CPU tensors to the plain version."""
     global launches
     _check(boxes, valid, max_out)
-    if boxes.device.type == "cpu":
+    device = boxes.device
+    if device.type == "cpu":
         return sorted_nms_reference(boxes, valid, iou_threshold, max_out)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"sorted_nms runs on CPU or CUDA, got {boxes.device}")
+    if device.type != "cuda":
+        raise ValueError(f"sorted_nms runs on CPU or CUDA, got {device}")
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return sorted_nms(boxes, valid, iou_threshold, max_out)
     from cfun_tpu_torch import _build
 
     lib = _build.library()
     n = boxes.shape[0]
-    if n > lib.cfun_sorted_nms_max_n():
-        raise ValueError(f"the sorted_nms kernel takes N <= "
-                         f"{lib.cfun_sorted_nms_max_n()}, got {n}")
     boxes = boxes.contiguous()
     valid = valid.contiguous()
-    scratch = torch.empty(max(lib.cfun_sorted_nms_scratch_words(n), 1),
-                          dtype=torch.int64, device=boxes.device)
-    idx = torch.empty(max_out, dtype=torch.int32, device=boxes.device)
-    keep = torch.empty(max_out, dtype=torch.bool, device=boxes.device)
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.cfun_sorted_nms(
-            ctypes.c_void_p(boxes.data_ptr()),
-            ctypes.c_void_p(valid.data_ptr()), n,
-            ctypes.c_float(iou_threshold), max_out,
-            ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_void_p(idx.data_ptr()),
-            ctypes.c_void_p(keep.data_ptr()), ctypes.c_void_p(stream))
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    ws = _workspace(lib, n, device, stream)
+    idx = torch.empty(max_out, dtype=torch.int32, device=device)
+    keep = torch.empty(max_out, dtype=torch.bool, device=device)
+    err = lib.cfun_sorted_nms(boxes.data_ptr(), valid.data_ptr(), n,
+                              iou_threshold, max_out, ws.data_ptr(),
+                              idx.data_ptr(), keep.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sorted_nms kernel launch failed: CUDA error "
                            f"{err}")

@@ -10,7 +10,9 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           and prints what ptxas reported for each (registers, shared
           memory, spills)
   k1      holds the sorted-NMS kernel against its plain PyTorch version on
-          edge cases (exact idx / keep) and times it at the served shapes
+          edge cases, N from 1 to 4096 around the 64-box words (exact idx /
+          keep), on two new inputs replayed through one CUDA graph of it,
+          and on two streams at once
   serve   whole-heart inference at full width (192x320x320, stage
           'beginning', heart_inference_config with nms_backend='pallas'):
           weights/heart_synth.npz, three requests through Detector.detect
@@ -153,6 +155,8 @@ def k2_bound_ms(b, c_in, c_out, v):
 
 # the device kernels of one K2 call: the weights' repack, then the conv
 K2_KERNELS = ("pack_weights_kernel", "fused_conv3d_kernel")
+# the device kernel of one K1 call
+K1_KERNELS = ("sorted_nms_kernel",)
 
 # The K2 launches a request that the fused U-Net must make at a 96^3 crop,
 # base 20 and min_fused_voxels 4096 with one detection a request, by
@@ -187,9 +191,7 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             mangled = m.group(1)
-            name = next((k for k in ("fused_conv3d_kernel",
-                                     "pack_weights_kernel",
-                                     "iou_mask_kernel", "sweep_kernel")
+            name = next((k for k in K2_KERNELS + K1_KERNELS
                          if k in mangled), mangled)
             t = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?", mangled)
             if t:
@@ -269,8 +271,10 @@ def graph_ms(fn):
     with torch.cuda.stream(stream):
         fn()
     torch.cuda.current_stream().wait_stream(stream)
+    # captured on the warm-up's stream, so what a wrapper holds per stream
+    # (K1's workspace) is set up before the capture, not inside it
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     return cuda_ms(graph.replay, 100, 5)
 
@@ -337,13 +341,68 @@ def synth_heart(seed, shape=(256, 256, 128)):
     return image
 
 
+def nms_random(n, seed, device):
+    """Seeded score-sorted boxes [n, 6] and a validity mask, ~80% valid."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 60, size=(n, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(2, 30, size=(n, 3))], 1)
+    return (torch.from_numpy(boxes.astype(np.float32)).to(device),
+            torch.from_numpy(rng.uniform(size=n) > 0.2).to(device))
+
+
+def k1_replay_and_streams(k1, device, n=1000, thr=0.7, k=64):
+    """K1 captured once in a CUDA graph and replayed on two new inputs
+    copied into its static input, and K1 on two streams at once; each
+    result must equal the plain version on its own input."""
+    import torch
+
+    static_boxes, static_valid = nms_random(n, 10, device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k1.sorted_nms(static_boxes, static_valid, thr, k)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        idx, keep = k1.sorted_nms(static_boxes, static_valid, thr, k)
+    for seed in (11, 12):
+        boxes, valid = nms_random(n, seed, device)
+        static_boxes.copy_(boxes)
+        static_valid.copy_(valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        ridx, rkeep = k1.sorted_nms_reference(boxes, valid, thr, k)
+        check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
+              f"k1 graph replay on new input (seed {seed})")
+    inputs = [nms_random(n, seed, device) for seed in (13, 14)]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    for _ in range(3):  # the first round sets up each stream's workspace
+        outs = []
+        for s, (boxes, valid) in zip(streams, inputs):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                outs.append(k1.sorted_nms(boxes, valid, thr, k))
+        for s in streams:
+            torch.cuda.current_stream().wait_stream(s)
+        torch.cuda.synchronize()
+        for (boxes, valid), (idx, keep) in zip(inputs, outs):
+            ridx, rkeep = k1.sorted_nms_reference(boxes, valid, thr, k)
+            check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
+                  "k1 on two streams at once")
+    print(f"k1 exact across 2 CUDA-graph replays on new inputs and on 2 "
+          f"streams at once (N={n} k={k} thr={thr})", flush=True)
+
+
 def nms_cases(device):
     """(name, boxes [N, 6] f32 score-sorted, valid [N] bool, thr, k)."""
     import numpy as np
     import torch
 
     cases = []
-    for n in (1, 63, 64, 65, 1000, 1024, 3000):
+    for n in (1, 63, 64, 65, 127, 128, 129, 1000, 1024, 1025, 3000, 4096):
         rng = np.random.default_rng(n)
         lo = rng.uniform(0, 60, size=(n, 3))
         sz = rng.uniform(2, 30, size=(n, 3))
@@ -550,6 +609,7 @@ def main() -> int:
                   f"{idx[:8].tolist()} vs {ridx[:8].tolist()}")
             n_cases += 1
         print(f"k1 exact on {n_cases} cases", flush=True)
+        k1_replay_and_streams(k1, dev)
 
     with phase("k2"):
         for i, (b, ci, co, d, h, w, pre) in enumerate(K2_EDGE):
@@ -747,12 +807,12 @@ def main() -> int:
               f"fused finetune request {busy_ft:.3f} ms)", flush=True)
         for site, (boxes, valid, thr, k) in zip(kern, seen):
             replay, prof_ms = kernel_device_ms(
-                lambda: k1.sorted_nms(boxes, valid, thr, k),
-                ("iou_mask_kernel", "sweep_kernel"))
+                lambda: k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
             site["device_ms"] = replay
+            site["kernel_ms"] = prof_ms
             print(f"profile: k1 N={boxes.shape[0]} k={k} thr={thr}: device "
                   f"{replay:.4f} ms (graph replay), {prof_ms:.4f} ms "
-                  f"(profiler)", flush=True)
+                  f"(profiler, kernel alone)", flush=True)
 
     with phase("small"):
         tcfg = port_config.tiny_config(detection_max_instances=1,
@@ -795,10 +855,13 @@ def main() -> int:
         "launches_per_request": served_launches / 3,
         "max_abs_err": max(s["max_abs_err"] for s in kern),
         "ms": per_req_ms,
+        "device_ms": sum(s["device_ms"] for s in kern),
+        "kernel_ms": sum(s["kernel_ms"] for s in kern),
         "plain_ms": sum(s["plain_ms"] for s in kern),
         "bound_ms": sum(s["bound_ms"] for s in kern),
         "bound_by": max(kern, key=lambda s: s["bound_ms"])["bound_by"],
         "library_ms": None, "exact_match": True,
+        "ptxas": [k for k in ptxas if k["kernel"].startswith(K1_KERNELS)],
         "launches_by_path": {"serve": served["sorted_nms"],
                              "serve_fused": fused_launches["sorted_nms"],
                              "serve_ft": ft_launches["sorted_nms"]},

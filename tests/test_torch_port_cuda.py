@@ -27,20 +27,65 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n,k,thr", [(1, 1, 0.7), (65, 64, 0.3),
-                                     (1000, 64, 0.7), (64, 1, 0.3),
-                                     (4096, 4096, 0.5)])
-def test_kernel_matches_plain(cuda, n, k, thr):
-    rng = np.random.default_rng(n)
+def _nms_inputs(n, seed, device):
+    rng = np.random.default_rng(seed)
     lo = rng.uniform(0, 60, size=(n, 3))
     boxes = np.concatenate([lo, lo + rng.uniform(2, 30, size=(n, 3))], 1)
-    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda)
-    valid = torch.from_numpy(rng.uniform(size=n) > 0.2).to(cuda)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(device)
+    return boxes, torch.from_numpy(rng.uniform(size=n) > 0.2).to(device)
+
+
+@pytest.mark.parametrize("n,k,thr", [
+    (1, 1, 0.7), (65, 64, 0.3), (1000, 64, 0.7), (64, 1, 0.3),
+    (4096, 4096, 0.5),
+    # around the 64-box words and the kernel's staging limit
+    (63, 63, 0.3), (64, 64, 0.7), (127, 1, 0.3), (128, 128, 0.7),
+    (129, 64, 0.3), (1024, 1024, 0.3), (1025, 64, 0.7), (1200, 1200, 0.3),
+    (4096, 1, 0.7), (4096, 64, 0.3)])
+def test_kernel_matches_plain(cuda, n, k, thr):
+    boxes, valid = _nms_inputs(n, n, cuda)
     before = k1.launches
     idx, keep = k1.sorted_nms(boxes, valid, thr, k)
     assert k1.launches == before + 1
     ridx, rkeep = k1.sorted_nms_reference(boxes, valid, thr, k)
     assert torch.equal(idx, ridx) and torch.equal(keep, rkeep)
+
+
+def test_kernel_graph_replays_on_new_inputs(cuda):
+    """One CUDA graph of the kernel, replayed on inputs copied into its
+    static input: the kernel resets its own state between launches."""
+    boxes, valid = _nms_inputs(1000, 1, cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k1.sorted_nms(boxes, valid, 0.7, 64)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        idx, keep = k1.sorted_nms(boxes, valid, 0.7, 64)
+    for seed in (2, 3):
+        new_boxes, new_valid = _nms_inputs(1000, seed, cuda)
+        boxes.copy_(new_boxes)
+        valid.copy_(new_valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        ridx, rkeep = k1.sorted_nms_reference(new_boxes, new_valid, 0.7, 64)
+        assert torch.equal(idx, ridx) and torch.equal(keep, rkeep)
+
+
+def test_kernel_on_two_streams_at_once(cuda):
+    inputs = [_nms_inputs(1000, seed, cuda) for seed in (4, 5)]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    for _ in range(3):
+        outs = []
+        for s, (boxes, valid) in zip(streams, inputs):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                outs.append(k1.sorted_nms(boxes, valid, 0.3, 64))
+        torch.cuda.synchronize()
+        for (boxes, valid), (idx, keep) in zip(inputs, outs):
+            ridx, rkeep = k1.sorted_nms_reference(boxes, valid, 0.3, 64)
+            assert torch.equal(idx, ridx) and torch.equal(keep, rkeep)
 
 
 def test_kernel_rejects_oversize(cuda):

@@ -36,7 +36,8 @@ def test_port_imports_no_jax_or_cfun_tpu():
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|ml_dtypes|cfun_tpu(\.|\s|$))")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, name)
+             for name in ("chip_smoke.py", "k1_compare.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "cfun_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     offenders = []
