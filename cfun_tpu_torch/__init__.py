@@ -14,6 +14,8 @@ layouts (``weights.py``).
 Every Pallas kernel of the JAX package on the served path is a CUDA kernel
 written for Hopper (``csrc/``, built by ``_build.py`` with ``nvcc`` and
 bound with ctypes), with a plain PyTorch version beside it that CPU
-tensors use.  Entry points run on CUDA unless the caller passes
+tensors use.  The host side of serving (mold and unmold) is C++ with
+OpenMP (``csrc/host_ops.cc``, built by ``_build.py`` with ``g++``, bound
+in ``native.py``).  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """

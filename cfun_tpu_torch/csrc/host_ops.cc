@@ -1,0 +1,375 @@
+// Host-side kernels of the heart serving path: the mold (raw volume to the
+// molded device layout, optionally z-scored and quantized to the int8
+// wire) and the unmold (the mask crop pasted back at the original
+// resolution).  OpenMP C++ with a plain C interface, loaded with ctypes by
+// cfun_tpu_torch/native.py and built with g++ by cfun_tpu_torch/_build.py
+// (host_library; -O3 -march=native -fopenmp -shared -fPIC).
+//
+// The functions and their arithmetic are those of the JAX package's host
+// library (cfun_tpu/native.py), heart serving only:
+//
+//   mold_resize_f32: [H,W,D] raw volume -> [Dt,Ht,Wt] molded volume
+//     (trilinear, half-pixel convention == skimage order=1 w/o AA),
+//     emitting directly in device layout and optionally z-scoring in the
+//     same pass.
+//   mold_resize_q8: the same, z-scored and quantized to the int8 wire.
+//   volume_stats_f32 + mold_resize_slab_q8: the slab-pipelined int8 mold
+//     (stats from a strided sample, then z-slabs resized and quantized
+//     one at a time so each can upload while the next resizes).
+//   unmold_argmax_f32: [mD,mH,mW,C] mask probabilities -> int16 labels
+//     pasted into a [D0,H0,W0] volume inside an integer box, sampling
+//     trilinearly at every output voxel and taking the channel argmax
+//     in-register.
+//   unmold_labels_box_i16: nearest paste of an int8 label crop into a box.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+#if defined(_OPENMP)
+#include <omp.h>
+#endif
+
+namespace {
+
+inline void axis_coords(int n_out, int n_in, float* src, int* i0, int* i1,
+                        float* frac) {
+  const float scale = static_cast<float>(n_in) / static_cast<float>(n_out);
+  for (int i = 0; i < n_out; ++i) {
+    float s = (static_cast<float>(i) + 0.5f) * scale - 0.5f;
+    s = std::min(std::max(s, 0.0f), static_cast<float>(n_in - 1));
+    int lo = static_cast<int>(s);
+    i0[i] = lo;
+    i1[i] = std::min(lo + 1, n_in - 1);
+    frac[i] = s - static_cast<float>(lo);
+    src[i] = s;
+  }
+}
+
+struct AxisMap {
+  std::vector<int> i0, i1;
+  std::vector<float> f;
+  AxisMap(int n_out, int n_in) : i0(n_out), i1(n_out), f(n_out) {
+    std::vector<float> s(n_out);
+    axis_coords(n_out, n_in, s.data(), i0.data(), i1.data(), f.data());
+  }
+};
+
+// Tiled trilinear-resize core.  Loop order is y-outer (parallel), x-block,
+// x, z-inner: for a fixed (y, x) the 4 source corner columns are loaded
+// once and the full output-z range is emitted from them, so each source
+// cache line is touched O(1) times instead of once per output z-plane (the
+// round-1 z-outer order re-streamed ~4 GB for a 380 MB source).  Values
+// are staged in a [z_count, XB] tile so the emit callback writes whole
+// contiguous rows.  Interpolation order (z, then x, then y) matches the
+// original kernel bit-for-bit.
+template <typename Emit>
+void resize_tiled(const float* src, int h0, int w0, int d0, int dt, int ht,
+                  int wt, int z_start, int z_end, double* out_sum,
+                  double* out_sumsq, Emit emit) {
+  const AxisMap zm(dt, d0), ym(ht, h0), xm(wt, w0);
+  const int64_t src_h_stride = static_cast<int64_t>(w0) * d0;
+  const int zc = z_end - z_start;
+  constexpr int XB = 128;
+  double sum = 0.0, sumsq = 0.0;
+
+#pragma omp parallel reduction(+ : sum, sumsq)
+  {
+    std::vector<float> tile(static_cast<size_t>(zc) * XB);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      const float fy = ym.f[y];
+      const float* r00 = src + ym.i0[y] * src_h_stride;
+      const float* r10 = src + ym.i1[y] * src_h_stride;
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xi = 0; xi < xn; ++xi) {
+          const int x = xb + xi;
+          const float fx = xm.f[x];
+          const float* p00 = r00 + static_cast<int64_t>(xm.i0[x]) * d0;
+          const float* p01 = r00 + static_cast<int64_t>(xm.i1[x]) * d0;
+          const float* p10 = r10 + static_cast<int64_t>(xm.i0[x]) * d0;
+          const float* p11 = r10 + static_cast<int64_t>(xm.i1[x]) * d0;
+          float* col = tile.data() + xi;
+          for (int z = z_start; z < z_end; ++z) {
+            const int dz0 = zm.i0[z], dz1 = zm.i1[z];
+            const float fz = zm.f[z];
+            const float c00 = p00[dz0] + fz * (p00[dz1] - p00[dz0]);
+            const float c01 = p01[dz0] + fz * (p01[dz1] - p01[dz0]);
+            const float c10 = p10[dz0] + fz * (p10[dz1] - p10[dz0]);
+            const float c11 = p11[dz0] + fz * (p11[dz1] - p11[dz0]);
+            const float c0 = c00 + fx * (c01 - c00);
+            const float c1 = c10 + fx * (c11 - c10);
+            const float v = c0 + fy * (c1 - c0);
+            col[static_cast<size_t>(z - z_start) * XB] = v;
+            sum += v;
+            sumsq += static_cast<double>(v) * v;
+          }
+        }
+        for (int z = 0; z < zc; ++z)
+          emit(z + z_start, y, xb, xn,
+               tile.data() + static_cast<size_t>(z) * XB);
+      }
+    }
+  }
+  if (out_sum != nullptr) {
+    *out_sum = sum;
+    *out_sumsq = sumsq;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// src: [h0, w0, d0] C-contiguous float32 (the reference's [H, W, D] layout).
+// dst: [dt, ht, wt] C-contiguous float32 (device [D, H, W] layout).
+// normalize != 0: z-score the output in a second pass (mean/std of the
+// molded volume, reference model.py:1902-1904).
+void mold_resize_f32(const float* src, int h0, int w0, int d0, float* dst,
+                     int dt, int ht, int wt, int normalize) {
+  double sum = 0.0, sumsq = 0.0;
+  resize_tiled(src, h0, w0, d0, dt, ht, wt, 0, dt, &sum, &sumsq,
+               [dst, ht, wt](int z, int y, int xb, int n, const float* row) {
+                 std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt +
+                                 xb,
+                             row, static_cast<size_t>(n) * sizeof(float));
+               });
+
+  if (normalize) {
+    const int64_t n = static_cast<int64_t>(dt) * ht * wt;
+    const double mean = sum / n;
+    double var = sumsq / n - mean * mean;
+    if (var < 1e-12) var = 1.0;
+    const float inv = static_cast<float>(1.0 / std::sqrt(var));
+    const float m = static_cast<float>(mean);
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) dst[i] = (dst[i] - m) * inv;
+  }
+}
+
+// As mold_resize_f32(normalize=1) but additionally emits the z-scored
+// volume quantized to int8 (clip +-clip_sigma, scale) -- the inference
+// wire format -- in the same pass, so the host never touches the f32
+// volume again.
+void mold_resize_q8(const float* src, int h0, int w0, int d0, float* tmp,
+                    int8_t* dst_q8, int dt, int ht, int wt, float clip_sigma,
+                    float scale) {
+  mold_resize_f32(src, h0, w0, d0, tmp, dt, ht, wt, 1);
+  const int64_t n = static_cast<int64_t>(dt) * ht * wt;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    float v = tmp[i];
+    v = std::min(std::max(v, -clip_sigma), clip_sigma) * scale;
+    dst_q8[i] = static_cast<int8_t>(v);  // trunc, matching numpy astype
+  }
+}
+
+// probs: [md, mh, mw, c] float32 (channels innermost, device output layout).
+// out:   [od, oh, ow] int16, already zero-initialized by the caller.
+// box:   z1, y1, x1, z2, y2, x2 integer voxel bounds in the output volume.
+// Labels are the trilinear-resampled-probability argmax -- identical to the
+// reference's resize-paste-argmax without the [D,H,W,C] intermediate.
+void unmold_argmax_f32(const float* probs, int md, int mh, int mw, int c,
+                       int16_t* out, int od, int oh, int ow, int z1, int y1,
+                       int x1, int z2, int y2, int x2) {
+  z1 = std::max(z1, 0); y1 = std::max(y1, 0); x1 = std::max(x1, 0);
+  z2 = std::min(z2, od); y2 = std::min(y2, oh); x2 = std::min(x2, ow);
+  const int bd = z2 - z1, bh = y2 - y1, bw = x2 - x1;
+  if (bd <= 0 || bh <= 0 || bw <= 0) return;
+
+  const int64_t sh = static_cast<int64_t>(mw) * c;    // crop h stride
+  const int64_t sd = static_cast<int64_t>(mh) * sh;   // crop d stride
+
+#pragma omp parallel for schedule(static)
+  for (int z = 0; z < bd; ++z) {
+    float sz = (static_cast<float>(z) + 0.5f) * md / bd - 0.5f;
+    sz = std::min(std::max(sz, 0.0f), static_cast<float>(md - 1));
+    const int z0 = static_cast<int>(sz);
+    const int zz1 = std::min(z0 + 1, md - 1);
+    const float fz = sz - z0;
+    for (int y = 0; y < bh; ++y) {
+      float sy = (static_cast<float>(y) + 0.5f) * mh / bh - 0.5f;
+      sy = std::min(std::max(sy, 0.0f), static_cast<float>(mh - 1));
+      const int y0 = static_cast<int>(sy);
+      const int yy1 = std::min(y0 + 1, mh - 1);
+      const float fy = sy - y0;
+      int16_t* out_row = out + (static_cast<int64_t>(z + z1) * oh + (y + y1))
+                             * ow + x1;
+      for (int x = 0; x < bw; ++x) {
+        float sx = (static_cast<float>(x) + 0.5f) * mw / bw - 0.5f;
+        sx = std::min(std::max(sx, 0.0f), static_cast<float>(mw - 1));
+        const int x0 = static_cast<int>(sx);
+        const int xx1 = std::min(x0 + 1, mw - 1);
+        const float fx = sx - x0;
+
+        const float* p000 = probs + z0 * sd + y0 * sh + x0 * c;
+        const float* p001 = probs + z0 * sd + y0 * sh + xx1 * c;
+        const float* p010 = probs + z0 * sd + yy1 * sh + x0 * c;
+        const float* p011 = probs + z0 * sd + yy1 * sh + xx1 * c;
+        const float* p100 = probs + zz1 * sd + y0 * sh + x0 * c;
+        const float* p101 = probs + zz1 * sd + y0 * sh + xx1 * c;
+        const float* p110 = probs + zz1 * sd + yy1 * sh + x0 * c;
+        const float* p111 = probs + zz1 * sd + yy1 * sh + xx1 * c;
+
+        float best = -1e30f;
+        int best_c = 0;
+        for (int ch = 0; ch < c; ++ch) {
+          const float c00 = p000[ch] + fx * (p001[ch] - p000[ch]);
+          const float c01 = p010[ch] + fx * (p011[ch] - p010[ch]);
+          const float c10 = p100[ch] + fx * (p101[ch] - p100[ch]);
+          const float c11 = p110[ch] + fx * (p111[ch] - p110[ch]);
+          const float c0 = c00 + fy * (c01 - c00);
+          const float c1 = c10 + fy * (c11 - c10);
+          const float v = c0 + fz * (c1 - c0);
+          if (v > best) { best = v; best_c = ch; }
+        }
+        out_row[x] = static_cast<int16_t>(best_c);
+      }
+    }
+  }
+}
+
+// Mean/std estimate of a raw volume from a strided subsample.  Used to
+// pick the int8 quantization grid for the slab-pipelined mold: the device
+// re-z-scores (z-scoring is affine-invariant), so these stats only need to
+// map the data into int8 range, not match the molded-volume stats --
+// sampling error of a few permille is irrelevant against the +-5 sigma
+// clip margin.  stride=1 gives the exact pass.
+void volume_stats_f32(const float* src, int64_t n, int64_t stride,
+                      float* out_mean, float* out_std) {
+  if (stride < 1) stride = 1;
+  double sum = 0.0, sumsq = 0.0;
+  int64_t count = 0;
+#pragma omp parallel for schedule(static) reduction(+ : sum, sumsq, count)
+  for (int64_t i = 0; i < n; i += stride) {
+    const double v = src[i];
+    sum += v;
+    sumsq += v * v;
+    ++count;
+  }
+  const double mean = sum / static_cast<double>(count);
+  double var = sumsq / static_cast<double>(count) - mean * mean;
+  if (var < 1e-12) var = 1.0;
+  *out_mean = static_cast<float>(mean);
+  *out_std = static_cast<float>(std::sqrt(var));
+}
+
+// Slab variant of mold_resize_q8: resizes output z rows
+// [z_start, z_start + z_count) of the [dt, ht, wt] molded volume and emits
+// int8 directly into dst (slab buffer [z_count, ht, wt]) using a caller-
+// provided affine (mean / inv_std from volume_stats_f32).  No f32
+// intermediate exists, so slabs can stream to the device while later slabs
+// are still being resized (the mold<->upload overlap that breaks the
+// serial mold -> upload -> compute chain of the reference-shaped pipeline,
+// reference model.py:1774-1810 + .cuda() at model.py:1612-1619).
+void mold_resize_slab_q8(const float* src, int h0, int w0, int d0,
+                         int8_t* dst, int dt, int ht, int wt, int z_start,
+                         int z_count, float mean, float inv_std,
+                         float clip_sigma, float scale) {
+  const int z_end = std::min(z_start + z_count, dt);
+  resize_tiled(
+      src, h0, w0, d0, dt, ht, wt, z_start, z_end, nullptr, nullptr,
+      [dst, ht, wt, z_start, mean, inv_std, clip_sigma, scale](
+          int z, int y, int xb, int n, const float* row) {
+        int8_t* out =
+            dst + (static_cast<int64_t>(z - z_start) * ht + y) * wt + xb;
+        for (int i = 0; i < n; ++i) {
+          float v = (row[i] - mean) * inv_std;
+          v = std::min(std::max(v, -clip_sigma), clip_sigma) * scale;
+          out[i] = static_cast<int8_t>(v);  // trunc, matching numpy astype
+        }
+      });
+}
+
+// Nearest box-paste for the heart fast path's int8 label crop
+// (inference/pipeline.py::unmold labels branch, reference
+// model.py:1856-1858): out[z1+z, y1+y, x1+x] = lab[cz[z], cy[y], cx[x]]
+// as int16 into a caller-zeroed [D0, H0, W0] volume -- only the box
+// region is touched.  Replaces the numpy resize-then-paste (three
+// axis-take copies + an int16 convert-store over the box) with one
+// run-length pass; the index maps come from the caller so the nearest
+// convention is exactly data/resample.py::_axis_indices(order=0).
+// The box must start inside the volume: a clipped box that starts at the
+// extent (z1 == d0, y1 == h0 or x1 == w0) keeps a target extent of 1 and
+// would write one plane past the end, so such a box writes nothing here
+// (native.py::unmold_labels_box also checks before the call).
+void unmold_labels_box_i16(const int8_t* lab, int md, int mh, int mw,
+                           const int32_t* cz, const int32_t* cy,
+                           const int32_t* cx, int16_t* out, int d0,
+                           int h0, int w0, int z1, int y1, int x1,
+                           int td, int th, int tw) {
+  (void)md;
+  if (z1 < 0 || y1 < 0 || x1 < 0 || z1 >= d0 || y1 >= h0 || x1 >= w0)
+    return;
+  // x runs (innermost / contiguous output axis)
+  std::vector<int32_t> rstart, rcount, rsrc;
+  for (int x = 0; x < tw;) {
+    int x2 = x + 1;
+    while (x2 < tw && cx[x2] == cx[x]) ++x2;
+    rstart.push_back(x);
+    rcount.push_back(x2 - x);
+    rsrc.push_back(cx[x]);
+    x = x2;
+  }
+  const int nruns = static_cast<int>(rstart.size());
+#pragma omp parallel
+  {
+#if defined(_OPENMP)
+    const int tid = omp_get_thread_num();
+    const int nt = omp_get_num_threads();
+#else
+    const int tid = 0;
+    const int nt = 1;
+#endif
+    const int zlo = static_cast<int>(static_cast<int64_t>(td) * tid / nt);
+    const int zhi = static_cast<int>(static_cast<int64_t>(td) * (tid + 1)
+                                     / nt);
+    int prev_sz = -1;
+    for (int z = zlo; z < zhi; ++z) {
+      const int sz = cz[z];
+      int16_t* oplane = out +
+          ((static_cast<int64_t>(z1) + z) * h0 + y1) * w0 + x1;
+      if (sz == prev_sz) {
+        const int16_t* prev = oplane - static_cast<int64_t>(h0) * w0;
+        for (int y = 0; y < th; ++y)
+          std::memcpy(oplane + static_cast<int64_t>(y) * w0,
+                      prev + static_cast<int64_t>(y) * w0,
+                      static_cast<size_t>(tw) * sizeof(int16_t));
+        continue;
+      }
+      prev_sz = sz;
+      int prev_sy = -1;
+      int16_t* prow = nullptr;
+      for (int y = 0; y < th; ++y) {
+        const int sy = cy[y];
+        int16_t* orow = oplane + static_cast<int64_t>(y) * w0;
+        if (sy == prev_sy) {
+          std::memcpy(orow, prow, static_cast<size_t>(tw) * sizeof(int16_t));
+          continue;
+        }
+        prev_sy = sy;
+        prow = orow;
+        const int8_t* src = lab + (static_cast<int64_t>(sz) * mh + sy) * mw;
+        for (int r = 0; r < nruns; ++r) {
+          const int16_t v = static_cast<int16_t>(src[rsrc[r]]);
+          std::fill_n(orow + rstart[r], rcount[r], v);
+        }
+      }
+    }
+  }
+}
+
+int cfun_native_num_threads() {
+#if defined(_OPENMP)
+  return omp_get_max_threads();
+#else
+  return 1;
+#endif
+}
+
+}  // extern "C"

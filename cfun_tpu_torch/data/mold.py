@@ -4,7 +4,8 @@ the wire quantization of ``cfun_tpu/inference/pipeline.py::Detector._mold``).
 
 Heart molding (reference utils.py:389-393 + model.py:1902-1904): trilinear
 'self' resize of the [H, W, D] volume to the config's (H, W, D), then a
-whole-volume z-score.
+whole-volume z-score.  ``Detector(..., native=False)`` molds with these;
+by default it takes the native ops of ``native.py``.
 """
 
 from __future__ import annotations

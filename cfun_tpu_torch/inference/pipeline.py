@@ -1,6 +1,5 @@
 """The detector: host mold -> device graph -> host unmold (port of
-``cfun_tpu/inference/pipeline.py::Detector``: ``__init__``, ``detect`` and
-``unmold``).
+``cfun_tpu/inference/pipeline.py::Detector``, heart configurations).
 
 Output dict, as in the JAX package (reference model.py:1341-1389):
   rois      [N, (y1, x1, z1, y2, x2, z2)] in original voxel coords
@@ -8,19 +7,26 @@ Output dict, as in the JAX package (reference model.py:1341-1389):
   scores    [N]
   mask      [H, W, D] int16 label volume at the original resolution
 
-The mold is the JAX detector's NumPy path (resize + z-score + int8
-quantization); the slab-streamed native molds and ``detect_stream`` are a
-later slice.
+The host work is the port's native ops (``native.py``, C++ with OpenMP),
+as the JAX detector serves: on the packed int8 path the mold estimates the
+raw volume's statistics from a strided sample, resizes and quantizes
+z-slabs into page-locked buffers and uploads each one asynchronously while
+the next one resizes; the unmold pastes the label crop natively.
+``native=False`` takes the NumPy mold and unmold instead (``data/mold.py``,
+``data/resample.py``), what the JAX detector does without its library.
 """
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from cfun_tpu_torch import native as native_ops
 from cfun_tpu_torch.config import Config
 from cfun_tpu_torch.data.mold import (mold_volume, normalize_intensity,
                                       quantize_int8)
@@ -29,6 +35,17 @@ from cfun_tpu_torch.models import cfun
 from cfun_tpu_torch.ops.anchors import config_anchors
 from cfun_tpu_torch.weights import to_device
 
+CLIP_SIGMA = 5.0  # the int8 wire clips the z-scored volume at +-5 sigma
+STATS_STRIDE = 523  # the pipelined mold's sample of the raw volume
+
+
+class _Pending(NamedTuple):
+    """A dispatched request: its outputs on the host (page-locked on CUDA,
+    complete once ``event`` has), and the bytes they took."""
+    host: List[torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    down_bytes: int
+
 
 class Detector:
     """Single-volume heart detector over a port parameter tree
@@ -36,10 +53,20 @@ class Detector:
 
     ``device`` defaults to CUDA; pass ``device="cpu"`` to run the plain
     PyTorch versions of the kernels on the CPU.  There is no fallback: a
-    CUDA device that is not there raises.
+    CUDA device that is not there raises, and so does a host library that
+    cannot be built while ``native`` is on.
+
+    All device work of a request is enqueued on the calling thread's
+    current stream.  Page-locked slab buffers are reused from one request
+    to the next: before a slab is molded into its buffer, the event
+    recorded after that buffer's last upload is waited on.  Each request's
+    output is copied into a page-locked buffer of its own (PyTorch's
+    caching host allocator hands it out again only after that copy has
+    run), followed by an event that ``_finish`` waits on.
     """
 
-    def __init__(self, cfg: Config, params, device="cuda"):
+    def __init__(self, cfg: Config, params, device="cuda",
+                 native: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector: no CUDA device (pass device='cpu' "
@@ -49,44 +76,221 @@ class Detector:
                 "the port serves single-instance heart configs; LiTS and "
                 "the multi-instance overlap unmold are later slices")
         self.cfg = cfg
+        self.native = native
         self.params = to_device(params, self.device)
         self.anchors = torch.from_numpy(config_anchors(cfg)).to(self.device)
+        # every heart request's window, on the device once
+        self._window = torch.from_numpy(self._full_window()).to(self.device)
         # fast path: one packed int8 buffer (4-bit labels) crosses to the
         # host instead of three arrays
         self._packed = cfg.fast_unmold and cfg.num_classes <= 16
         self.labels_shape = (cfg.detection_max_instances,
-                              *(2 * p for p in cfg.mask_pool_size))
+                             *(2 * p for p in cfg.mask_pool_size))
         self.pack_bits = 2 if cfg.num_classes <= 4 else 4
+        # slab-pipelined native mold: int8 z-slabs quantized against
+        # sampled raw stats (the device re-z-scores), each uploaded while
+        # the next one resizes
+        self._pipelined = (native and self._packed and cfg.device_normalize
+                           and cfg.wire_image_dtype == "int8")
+        self._slab_bufs: List[torch.Tensor] = []
+        self._slab_events: List[torch.cuda.Event] = []
+        self._dispatch_thread: Optional[ThreadPoolExecutor] = None
         self.last_timings: Dict[str, float] = {}
+        # the 'unmold' bucket's parts: "fetch" (wait for the output on the
+        # host), "unpack", "paste"
+        self.last_sub_timings: Dict[str, float] = {}
+        # bytes of the last detect() that crossed to the device ("up") and
+        # back ("down")
+        self.last_wire_bytes: Dict[str, int] = {}
+
+    def _wire_dtype(self) -> torch.dtype:
+        return torch.int8 if self.cfg.wire_image_dtype == "int8" \
+            else torch.bfloat16
+
+    def _num_slabs(self) -> int:
+        return max(1, min(self.cfg.wire_slabs, self.cfg.image_shape[0])) \
+            if self._pipelined else 1
+
+    def _slab_ranges(self):
+        """[(z_start, z_count)] partition of the molded depth: the one
+        definition of the slabs that ``warmup`` and ``mold`` share."""
+        d = self.cfg.image_shape[0]
+        zs = -(-d // self._num_slabs())
+        return [(z, min(zs, d - z)) for z in range(0, d, zs)]
+
+    def _full_window(self) -> np.ndarray:
+        d, h, w = self.cfg.image_shape
+        return np.array([0, 0, 0, d, h, w], np.float32)
+
+    def _slab_buffer(self, i: int) -> torch.Tensor:
+        """Page-locked host buffer of slab ``i``, free to overwrite: the
+        upload that last read it has run."""
+        if not self._slab_bufs:
+            _, h, w = self.cfg.image_shape
+            self._slab_bufs = [
+                torch.empty((zc, h, w), dtype=torch.int8, pin_memory=True)
+                for _, zc in self._slab_ranges()]
+            self._slab_events = [torch.cuda.Event(blocking=True)
+                                 for _ in self._slab_bufs]
+        self._slab_events[i].synchronize()  # returns at once if unrecorded
+        return self._slab_bufs[i]
+
+    def warmup(self):
+        """Build and set up what the first request would: the host
+        library, the page-locked slab buffers, the CUDA kernels and cuDNN's
+        plans (one device pass on a zero wire, on this thread and on the
+        thread that ``detect_stream`` enqueues from)."""
+        if self.native:
+            native_ops.num_threads()
+        if self._pipelined and self.device.type == "cuda":
+            for i in range(len(self._slab_ranges())):
+                self._slab_buffer(i)
+        wire = torch.zeros((1, 1, *self.cfg.image_shape),
+                           dtype=self._wire_dtype(), device=self.device)
+        window = self._full_window()
+        stream = self._current_stream()
+        for pending in (self._dispatch(wire, window),
+                        self._dispatcher().submit(
+                            self._dispatch_on, stream, wire, window
+                        ).result()):
+            if pending.event is not None:
+                pending.event.synchronize()
+
+    def _current_stream(self) -> Optional[torch.cuda.Stream]:
+        return (torch.cuda.current_stream(self.device)
+                if self.device.type == "cuda" else None)
+
+    def _dispatcher(self) -> ThreadPoolExecutor:
+        """The thread that enqueues ``detect_stream``'s device work, kept
+        for the detector's life (``close`` ends it): cuDNN's execution
+        plans and the library handles are kept per thread, so a new thread
+        would set them up again on its first request."""
+        if self._dispatch_thread is None:
+            self._dispatch_thread = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="detector-dispatch")
+        return self._dispatch_thread
+
+    def _dispatch_on(self, stream: Optional[torch.cuda.Stream], wire,
+                     window) -> "_Pending":
+        """``_dispatch`` on ``stream`` (for another thread than the one
+        that molded ``wire``)."""
+        if stream is None:
+            return self._dispatch(wire, window)
+        with torch.cuda.stream(stream):
+            return self._dispatch(wire, window)
+
+    def close(self):
+        """End the dispatch thread (a later ``detect_stream`` starts a new
+        one, which sets its plans up again)."""
+        if self._dispatch_thread is not None:
+            self._dispatch_thread.shutdown(wait=True)
+            self._dispatch_thread = None
 
     def mold(self, image_hwd: np.ndarray):
         """Raw [H, W, D] volume -> (wire tensor [1, 1, D, H, W] on the
-        device, window, original shape)."""
+        device, window, original shape).  On CUDA the upload may still be
+        in flight on the current stream when this returns."""
         cfg = self.cfg
         if image_hwd.ndim == 4:
             image_hwd = image_hwd[..., 0]
-        molded, window = mold_volume(image_hwd, cfg)
-        molded = normalize_intensity(molded)
-        if cfg.wire_image_dtype == "int8":
-            wire = torch.from_numpy(quantize_int8(molded,
-                                                  cfg.wire_int8_scale))
+        window = self._full_window()
+        if self._pipelined:
+            wire = self._mold_slabs(image_hwd)
         else:
-            wire = torch.from_numpy(np.ascontiguousarray(molded)).to(
-                torch.bfloat16)
-        wire = wire.to(self.device)[None, None]
+            if not self.native:
+                molded, window = mold_volume(image_hwd, cfg)
+                molded = normalize_intensity(molded)
+                if cfg.wire_image_dtype == "int8":
+                    host = torch.from_numpy(
+                        quantize_int8(molded, cfg.wire_int8_scale))
+                else:
+                    host = torch.from_numpy(np.ascontiguousarray(molded))
+            elif cfg.wire_image_dtype == "int8":
+                host = torch.from_numpy(native_ops.mold_resize_q8(
+                    image_hwd, cfg.image_shape, CLIP_SIGMA,
+                    cfg.wire_int8_scale))
+            else:
+                host = torch.from_numpy(native_ops.mold_resize(
+                    image_hwd, cfg.image_shape, normalize=True))
+            wire = host.to(self._wire_dtype()).to(self.device)[None, None]
         return wire, window, image_hwd.shape[:3]
+
+    def _mold_slabs(self, image_hwd: np.ndarray) -> torch.Tensor:
+        """The pipelined mold: stats from a strided sample, then each
+        z-slab resized and quantized natively and, on CUDA, uploaded from
+        its page-locked buffer into its z-range of one device tensor."""
+        cfg = self.cfg
+        src = np.ascontiguousarray(image_hwd, np.float32)
+        mean, std = native_ops.volume_stats(src, STATS_STRIDE)
+        wire = torch.empty((1, 1, *cfg.image_shape), dtype=torch.int8,
+                           device=self.device)
+        on_cpu = self.device.type == "cpu"
+        stream = None if on_cpu else torch.cuda.current_stream(self.device)
+        for i, (z, zc) in enumerate(self._slab_ranges()):
+            buf = wire[0, 0, z:z + zc] if on_cpu else self._slab_buffer(i)
+            native_ops.mold_slab_q8(src, cfg.image_shape, z, zc, mean, std,
+                                    CLIP_SIGMA, cfg.wire_int8_scale,
+                                    out=buf.numpy())
+            if not on_cpu:
+                wire[0, 0, z:z + zc].copy_(buf, non_blocking=True)
+                self._slab_events[i].record(stream)
+        return wire
 
     @torch.inference_mode()
     def infer(self, wire: torch.Tensor, window: np.ndarray,
               nms: cfun.NmsFn = cfun.sorted_nms):
         """The device graph on a molded wire tensor: the packed int8 buffer
-        on the fast path, else the :class:`cfun.InferOut`."""
-        win = torch.as_tensor(window, dtype=torch.float32, device=self.device)
+        on the fast path, else the :class:`cfun.InferOut`.  Another
+        window than the full one is uploaded on each call, a copy from
+        pageable memory that waits for the device."""
+        win = (self._window if np.array_equal(window, self._full_window())
+               else torch.as_tensor(window, dtype=torch.float32,
+                                    device=self.device))
         out = cfun.infer_forward(self.params, wire, self.anchors, win,
                                  self.cfg, nms=nms)
         if self._packed:
             return cfun.pack_fast_output(out, bits=self.pack_bits)
         return out
+
+    def _dispatch(self, wire: torch.Tensor, window) -> _Pending:
+        """Enqueue the device graph and the copy of its outputs to the
+        host; waits for neither."""
+        out = self.infer(wire, window)
+        if self._packed:
+            outs = [out]
+        else:
+            outs = [out.detections, out.det_valid,
+                    out.mask_labels if out.mask_labels is not None
+                    else out.mask_probs]
+        down = sum(t.numel() * t.element_size() for t in outs)
+        if self.device.type == "cpu":
+            return _Pending(outs, None, down)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in outs]
+        for h, t in zip(host, outs):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event(blocking=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return _Pending(host, event, down)
+
+    def _finish(self, pending: _Pending, orig_shape_hwd,
+                window: np.ndarray) -> Dict[str, np.ndarray]:
+        """Wait for the outputs on the host, unpack and unmold them."""
+        t0 = time.perf_counter()
+        if pending.event is not None:
+            pending.event.synchronize()
+        t1 = time.perf_counter()
+        if self._packed:
+            detections, kept, masks = cfun.unpack_fast_output(
+                pending.host[0].numpy(), self.cfg.detection_max_instances,
+                self.labels_shape, bits=self.pack_bits)
+        else:
+            detections, kept, masks = (t.numpy() for t in pending.host)
+            if masks.dtype != np.int8:  # the probability stack
+                masks = masks.astype(np.float32)
+        self.last_sub_timings = {"fetch": t1 - t0,
+                                 "unpack": time.perf_counter() - t1}
+        return self.unmold(detections, kept, masks, orig_shape_hwd, window)
 
     def detect(self, image_hwd: np.ndarray,
                timings: Optional[dict] = None) -> Dict[str, np.ndarray]:
@@ -94,28 +298,52 @@ class Detector:
         t0 = time.perf_counter()
         wire, window, orig_shape = self.mold(image_hwd)
         t1 = time.perf_counter()
-        out = self.infer(wire, window)
-        if self._packed:
-            buf = out.cpu().numpy()  # waits for the device
-            t2 = time.perf_counter()
-            detections, kept, masks = cfun.unpack_fast_output(
-                buf, self.cfg.detection_max_instances, self.labels_shape,
-                bits=self.pack_bits)
-        else:
-            detections = out.detections.cpu().numpy()
-            t2 = time.perf_counter()
-            kept = out.det_valid.cpu().numpy()
-            if out.mask_labels is not None:  # fast path, unpacked
-                masks = out.mask_labels.cpu().numpy()
-            else:
-                masks = out.mask_probs.float().cpu().numpy()
-        result = self.unmold(detections, kept, masks, orig_shape, window)
+        pending = self._dispatch(wire, window)
+        if pending.event is not None:
+            pending.event.synchronize()  # the fetch is in 'device'
+        t2 = time.perf_counter()
+        self.last_wire_bytes = {"up": wire.numel() * wire.element_size(),
+                                "down": pending.down_bytes}
+        result = self._finish(pending, orig_shape, window)
         t3 = time.perf_counter()
         self.last_timings = {"mold": t1 - t0, "device": t2 - t1,
                              "unmold": t3 - t2, "total": t3 - t0}
         if timings is not None:
             timings.update(self.last_timings)
         return result
+
+    def detect_stream(self, volumes):
+        """Pipelined inference over an iterable of [H, W, D] volumes:
+        yields one result dict a volume, in order.  Three stages overlap:
+        the host mold of volume N+1 (this thread), the device work of
+        volume N and the fetch + unmold of volume N (a worker thread,
+        which waits on the output's event).  At most two volumes are in
+        flight.
+
+        The device work is enqueued by the detector's dispatch thread, on
+        this thread's current stream: PyTorch launches each kernel from
+        Python, so the enqueue of a request takes host time of the order
+        of its device time, and on this thread it would hold the next mold
+        back.  Native mold and unmold calls and event waits release the
+        GIL, so the stages run at once."""
+        stream = self._current_stream()
+        dispatcher = self._dispatcher()
+
+        def finish(dispatched, orig_shape, window):
+            return self._finish(dispatched.result(), orig_shape, window)
+
+        pending = collections.deque()  # FIFO of finish futures
+        with ThreadPoolExecutor(max_workers=1) as finisher:
+            for vol in volumes:
+                wire, window, orig_shape = self.mold(vol)
+                dispatched = dispatcher.submit(self._dispatch_on, stream,
+                                               wire, window)
+                pending.append(finisher.submit(finish, dispatched,
+                                               orig_shape, window))
+                if len(pending) > 1:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
 
     def unmold(self, detections: np.ndarray, kept: np.ndarray,
                mask_data: np.ndarray, orig_shape_hwd,
@@ -145,16 +373,19 @@ class Detector:
         boxes, scores = boxes[good], scores[good]
         masks = mask_data[:n][good]
 
-        full = np.zeros((d0, h0, w0), np.int16)
+        tp = time.perf_counter()
         if boxes.shape[0] > 0:
             boxes = np.clip(boxes, 0, np.array([d0, h0, w0, d0, h0, w0]))
-            z1, y1, x1, z2, y2, x2 = boxes[0]
-            target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))
             if masks.ndim == 4:  # [N, d, h, w] int8 labels
-                full[z1:z1 + target[0], y1:y1 + target[1],
-                     x1:x1 + target[2]] = resize(masks[0], target, order=0)
+                full = self._paste_labels(masks[0], boxes[0], (d0, h0, w0))
+            elif self.native:
+                full = native_ops.unmold_argmax(masks[0], boxes[0],
+                                                (d0, h0, w0))
             else:
                 full = unmold_mask_labels(masks[0], boxes[0], (d0, h0, w0))
+        else:
+            full = np.zeros((d0, h0, w0), np.int16)
+        self.last_sub_timings["paste"] = time.perf_counter() - tp
 
         # (z, y, x) -> (y, x, z) box order; [D, H, W] -> [H, W, D] volume
         return {
@@ -163,3 +394,16 @@ class Detector:
             "scores": scores,
             "mask": full.transpose(1, 2, 0),
         }
+
+    def _paste_labels(self, labels: np.ndarray, box,
+                      shape_dhw) -> np.ndarray:
+        """Nearest paste of an int8 label crop into its clipped box of a
+        zeroed int16 volume."""
+        if self.native:
+            return native_ops.unmold_labels_box(labels, box, shape_dhw)
+        full = np.zeros(shape_dhw, np.int16)
+        z1, y1, x1, z2, y2, x2 = box
+        target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))
+        full[z1:z1 + target[0], y1:y1 + target[1],
+             x1:x1 + target[2]] = resize(labels, target, order=0)
+        return full

@@ -29,7 +29,8 @@ from cfun_tpu_torch.models.heads import apply_classifier, apply_mask_head
 from cfun_tpu_torch.models.p3d import apply_p3d
 from cfun_tpu_torch.models.rpn import apply_rpn
 from cfun_tpu_torch.ops.boxes import (apply_box_deltas, clip_boxes,
-                                      denormalize_boxes, normalize_boxes)
+                                      denormalize_boxes, device_constant,
+                                      normalize_boxes)
 from cfun_tpu_torch.ops.nms import nms_gather
 from cfun_tpu_torch.ops.sample3d import roi_align
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
@@ -79,13 +80,14 @@ def propose(rpn_logits: torch.Tensor, rpn_deltas: torch.Tensor,
     Returns (proposals [P, 6] normalized + zero-padded, valid [P] bool).
     """
     scores = torch.softmax(rpn_logits, dim=-1)[:, 1]
-    deltas = rpn_deltas * torch.tensor(cfg.rpn_bbox_std, dtype=torch.float32,
-                                       device=rpn_deltas.device)
+    deltas = rpn_deltas * device_constant(cfg.rpn_bbox_std, torch.float32,
+                                          rpn_deltas.device)
     pre = min(cfg.pre_nms_limit, anchors.shape[0])
     _, order = _top_desc(scores, pre)
     boxes = apply_box_deltas(anchors[order], deltas[order])
     d, h, w = cfg.image_shape
-    boxes = clip_boxes(boxes, [0, 0, 0, d, h, w])
+    boxes = clip_boxes(boxes, device_constant((0, 0, 0, d, h, w),
+                                              boxes.dtype, boxes.device))
 
     valid = torch.ones(pre, dtype=torch.bool, device=boxes.device)
     idx, keep = nms(boxes, valid, cfg.rpn_nms_threshold, proposal_count)
@@ -127,8 +129,8 @@ def refine_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
     sel_deltas = deltas[torch.arange(deltas.shape[0],
                                      device=deltas.device), class_ids]
     # the reference scales with RPN_BBOX_STD_DEV here (model.py:610)
-    refined = apply_box_deltas(rois, sel_deltas * torch.tensor(
-        cfg.rpn_bbox_std, dtype=torch.float32, device=rois.device))
+    refined = apply_box_deltas(rois, sel_deltas * device_constant(
+        cfg.rpn_bbox_std, torch.float32, rois.device))
     refined = denormalize_boxes(refined, cfg.image_shape)
     refined = clip_boxes(refined, window)
     refined = torch.round(refined)

@@ -42,11 +42,15 @@ def apply_mask_head(params: nn.Params, crops: torch.Tensor, *, stage: str,
     [N, num_classes, D', H', W'] in ``dtype`` (D' = 2D at 'finetune').
 
     ``fused=True`` (``Config.pallas_unet``): the fused U-Net
-    (``models/unet3d.py::apply_unet_fused``), which computes in bfloat16."""
+    (``models/unet3d.py::apply_unet_fused``), which computes in bfloat16
+    and takes the phase head.  Otherwise the dense U-Net with the
+    phase-decomposed finetune head and decoder up-convs, the JAX package's
+    inference forms."""
     if fused:
         if dtype != torch.bfloat16:
             raise ValueError(f"fused=True computes in bfloat16; config "
                              f"compute dtype is {dtype}")
         return apply_unet_fused(params["unet"], crops, stage=stage,
                                 dtype=dtype)
-    return apply_unet(params["unet"], crops, stage=stage, dtype=dtype)
+    return apply_unet(params["unet"], crops, stage=stage, dtype=dtype,
+                      head_impl="phase", up_impl="phase")

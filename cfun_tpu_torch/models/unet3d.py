@@ -10,6 +10,14 @@ twice with the same weights inside each context level, ``context_1`` taps
 the pre-norm activation, and every conv is bias-free.  At stage
 'finetune' an extra 2x upscale head (``out_upscale``, a 5^3 conv with a
 residual) doubles the output resolution.
+
+The decoder up-convs and the finetune head each have two forms that
+compute the same map: 'explicit' (nearest upsample, then the conv) and
+'phase' (one conv with 8x the output channels, then depth-to-space;
+``nn.upsample2_conv`` / ``nn.upsample2_conv_residual``).  Inference takes
+the phase forms (``heads.apply_mask_head``), the up-convs only where
+their input has at least ``PHASE_MIN_VOXELS`` voxels: below that the 8x
+wider conv is mostly padding.
 """
 
 from __future__ import annotations
@@ -21,10 +29,26 @@ from cfun_tpu_torch.ops.fused_conv import (fused_conv3d, identity_affine,
                                            in_affine_from_sums)
 
 
+PHASE_MIN_VOXELS = 2048  # cfun_tpu/models/unet3d.py:258-272
+_IMPLS = ("explicit", "phase")
+
+
+def _check_impl(name: str, impl: str) -> None:
+    if impl not in _IMPLS:
+        raise ValueError(f"{name} must be one of {_IMPLS}, got {impl!r}")
+
+
 def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, head_impl: str = "explicit",
+               up_impl: str = "explicit") -> torch.Tensor:
     """x: [B, c_in, D, H, W] crop -> class logits [B, n_classes, D', H',
-    W'] in ``dtype``, where D' = D (2D at stage 'finetune')."""
+    W'] in ``dtype``, where D' = D (2D at stage 'finetune').
+
+    ``up_impl``: the decoder up-convs' form, 'phase' where the input has
+    at least ``PHASE_MIN_VOXELS`` voxels, else 'explicit'.  ``head_impl``:
+    the finetune head's form."""
+    _check_impl("head_impl", head_impl)
+    _check_impl("up_impl", up_impl)
 
     def conv(p, v, stride=1):
         return nn.conv3d(p, v, stride=stride, dtype=dtype)
@@ -39,8 +63,11 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
         return lrelu(inorm(conv(p, v)))
 
     def norm_lrelu_upscale_conv_norm_lrelu(p, v):
+        nsp = v.shape[2] * v.shape[3] * v.shape[4]
         v = lrelu(inorm(v))
-        return lrelu(inorm(nn.upsample2_conv(p, v, dtype=dtype)))
+        if up_impl == "phase" and nsp >= PHASE_MIN_VOXELS:
+            return lrelu(inorm(nn.upsample2_conv(p, v, dtype=dtype)))
+        return lrelu(inorm(nn.upsample2_conv_explicit(p, v, dtype=dtype)))
 
     # ---- level 1 context
     out = nn.conv3d_1ch(params["c1_1"], x, dtype=dtype)
@@ -96,8 +123,9 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     ds3_c = conv(params["ds3"], ds3)
     out = out_pred + nn.upsample_nearest(ds2_up + ds3_c)
     if stage == "finetune":
-        out = nn.upsample2_conv_residual(params["out_upscale"], out,
-                                         dtype=dtype)
+        head = nn.upsample2_conv_residual if head_impl == "phase" \
+            else nn.upsample2_conv_residual_explicit
+        out = head(params["out_upscale"], out, dtype=dtype)
     return out
 
 
@@ -114,8 +142,8 @@ def apply_unet_fused(params: nn.Params, x: torch.Tensor, *, stage: str,
     the up-convs upsample the raw tensor), and the conv emits its output
     moments, so the InstanceNorm after it needs no reduction pass.  Smaller
     convs take the same composition through ``F.conv3d``; stride-2 downs,
-    1^3 convs and the finetune upscale head stay plain.  bf16 rounds at
-    other places than in :func:`apply_unet`.
+    1^3 convs and the finetune upscale head (its phase form) stay plain.
+    bf16 rounds at other places than in :func:`apply_unet`.
     """
     b = x.shape[0]
 

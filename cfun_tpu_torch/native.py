@@ -1,0 +1,215 @@
+"""ctypes bindings of the port's host ops (``csrc/host_ops.cc``): the
+native mold and unmold of heart serving.
+
+The library is built with ``g++`` at first use (``_build.build_host``)
+and loaded with ctypes' default ``RTLD_LOCAL``, so its symbols stay its
+own in a process that loads another library of the same names.  ctypes
+releases the GIL during each call, so a mold on one thread and an unmold
+on another run at once.  There is no NumPy fallback here: a missing
+compiler or a failed build raises.  ``Detector(..., native=False)`` is the
+caller's explicit choice of the NumPy mold (``data/mold.py``).
+
+Every wrapper checks the shapes, dtypes and contiguity of what it passes
+by pointer; the arithmetic is the C++ code's (see its header).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+from cfun_tpu_torch import _build
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i, f = ctypes.c_int, ctypes.c_float
+    lib.mold_resize_f32.argtypes = [f32p, i, i, i, f32p, i, i, i, i]
+    lib.mold_resize_f32.restype = None
+    lib.mold_resize_q8.argtypes = [f32p, i, i, i, f32p, i8p, i, i, i, f, f]
+    lib.mold_resize_q8.restype = None
+    lib.unmold_argmax_f32.argtypes = [f32p] + [i] * 4 + [i16p] + [i] * 9
+    lib.unmold_argmax_f32.restype = None
+    lib.volume_stats_f32.argtypes = [
+        f32p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
+    lib.volume_stats_f32.restype = None
+    lib.mold_resize_slab_q8.argtypes = [f32p, i, i, i, i8p] + [i] * 5 + \
+        [f] * 4
+    lib.mold_resize_slab_q8.restype = None
+    lib.unmold_labels_box_i16.argtypes = [i8p, i, i, i, i32p, i32p, i32p,
+                                          i16p] + [i] * 9
+    lib.unmold_labels_box_i16.restype = None
+    lib.cfun_native_num_threads.argtypes = []
+    lib.cfun_native_num_threads.restype = ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    """The loaded host library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_build.build_host())
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def num_threads() -> int:
+    """OpenMP thread count the native ops run with."""
+    return int(library().cfun_native_num_threads())
+
+
+def _source(src_hwd: np.ndarray) -> Tuple[np.ndarray, int, int, int]:
+    src = np.ascontiguousarray(src_hwd, np.float32)
+    if src.ndim != 3 or min(src.shape) < 1:
+        raise ValueError(f"source must be a non-empty [H, W, D] volume, "
+                         f"got shape {src.shape}")
+    return (src, *src.shape)
+
+
+def _out_shape(out_shape_dhw) -> Tuple[int, int, int]:
+    dt, ht, wt = (int(v) for v in out_shape_dhw)
+    if min(dt, ht, wt) < 1:
+        raise ValueError(f"output shape must be positive, got "
+                         f"{out_shape_dhw}")
+    return dt, ht, wt
+
+
+def mold_resize(src_hwd: np.ndarray, out_shape_dhw,
+                normalize: bool) -> np.ndarray:
+    """[H, W, D] raw volume -> [Dt, Ht, Wt] float32 trilinear resize
+    (half-pixel, no antialiasing), z-scored over the molded volume when
+    ``normalize``."""
+    src, h0, w0, d0 = _source(src_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    dst = np.empty((dt, ht, wt), np.float32)
+    library().mold_resize_f32(src, h0, w0, d0, dst, dt, ht, wt,
+                              int(normalize))
+    return dst
+
+
+def mold_resize_q8(src_hwd: np.ndarray, out_shape_dhw, clip_sigma: float,
+                   scale: float) -> np.ndarray:
+    """[H, W, D] raw volume -> the int8 wire [Dt, Ht, Wt] in one pass:
+    resize, z-score over the molded volume, clip to +-``clip_sigma``,
+    times ``scale``, truncated to int8."""
+    src, h0, w0, d0 = _source(src_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    tmp = np.empty((dt, ht, wt), np.float32)
+    dst = np.empty((dt, ht, wt), np.int8)
+    library().mold_resize_q8(src, h0, w0, d0, tmp, dst, dt, ht, wt,
+                             float(clip_sigma), float(scale))
+    return dst
+
+
+def volume_stats(src: np.ndarray, stride: int = 523) -> Tuple[float, float]:
+    """(mean, std) of a float32 volume from every ``stride``-th voxel
+    (sums in double).  They set the int8 affine of the slab-pipelined mold;
+    the device re-z-scores, so a sample's error is immaterial against the
+    +-5 sigma clip.  ``stride=1`` reads every voxel."""
+    src = np.ascontiguousarray(src, np.float32)
+    if src.size == 0 or stride < 1:
+        raise ValueError(f"volume_stats needs a non-empty volume and a "
+                         f"stride >= 1, got size {src.size} stride {stride}")
+    mean, std = ctypes.c_float(), ctypes.c_float()
+    library().volume_stats_f32(src.reshape(-1), src.size, int(stride),
+                               ctypes.byref(mean), ctypes.byref(std))
+    return float(mean.value), float(std.value)
+
+
+def mold_slab_q8(src_hwd: np.ndarray, out_shape_dhw, z_start: int,
+                 z_count: int, mean: float, std: float, clip_sigma: float,
+                 scale: float, out: Optional[np.ndarray] = None
+                 ) -> np.ndarray:
+    """Output z rows [z_start, z_start + z_count) of the int8 wire, with
+    the given affine: resize, ``(v - mean) / std``, clip, scale, truncate.
+    Written into ``out`` (int8 C-contiguous [z_count, Ht, Wt], e.g. a view
+    of a page-locked buffer) when given; returns it.  ``src_hwd`` must be
+    C-contiguous float32 already: callers mold several slabs from one
+    source."""
+    if src_hwd.dtype != np.float32 or not src_hwd.flags.c_contiguous:
+        raise ValueError("mold_slab_q8 takes a C-contiguous float32 source")
+    src, h0, w0, d0 = _source(src_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    z_start, z_count = int(z_start), int(z_count)
+    if z_start < 0 or z_count < 1 or z_start + z_count > dt:
+        raise ValueError(f"slab [{z_start}, {z_start + z_count}) is not "
+                         f"inside depth {dt}")
+    if out is None:
+        out = np.empty((z_count, ht, wt), np.int8)
+    elif (out.shape != (z_count, ht, wt) or out.dtype != np.int8
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be int8 C-contiguous "
+                         f"{(z_count, ht, wt)}, got {out.dtype} {out.shape}")
+    library().mold_resize_slab_q8(
+        src, h0, w0, d0, out, dt, ht, wt, z_start, z_count, float(mean),
+        float(1.0 / max(std, 1e-6)), float(clip_sigma), float(scale))
+    return out
+
+
+def _nearest(n_in: int, n_out: int) -> np.ndarray:
+    """Nearest source index of each of ``n_out`` outputs (half-pixel,
+    float64: ``data/resample.py::_axis_indices(order=0)``)."""
+    if n_in == n_out:  # resize() short-circuits equal axes
+        return np.arange(n_out, dtype=np.int32)
+    s = np.clip((np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out
+                - 0.5, 0, n_in - 1)
+    return np.floor(s + 0.5).astype(np.int32)
+
+
+def unmold_labels_box(lab_dhw: np.ndarray, box, out_shape_dhw
+                      ) -> np.ndarray:
+    """Nearest-resize an int8 [md, mh, mw] label crop into the integer
+    ``box`` (z1, y1, x1, z2, y2, x2; clipped to the volume) of a zeroed
+    int16 [D0, H0, W0] volume: ``resize(lab, target, order=0)`` pasted at
+    the box, target ``max(z2 - z1, 1)`` a side.
+
+    A box that starts at the volume's extent (``z1 >= D0``, ``y1 >= H0``
+    or ``x1 >= W0``: a clipped box past the edge) pastes nothing, as the
+    NumPy slice paste does: the zeroed volume comes back without a call,
+    since the target of 1 would write past the end."""
+    lab = np.ascontiguousarray(lab_dhw, np.int8)
+    if lab.ndim != 3 or min(lab.shape) < 1:
+        raise ValueError(f"labels must be a non-empty [d, h, w] crop, got "
+                         f"{lab.shape}")
+    md, mh, mw = lab.shape
+    d0, h0, w0 = (int(v) for v in out_shape_dhw)
+    z1, y1, x1, z2, y2, x2 = (int(v) for v in box)
+    out = np.zeros((d0, h0, w0), np.int16)
+    if min(z1, y1, x1) < 0 or z2 > d0 or y2 > h0 or x2 > w0:
+        raise ValueError(f"box {list(box)} is not clipped to {out.shape}")
+    if z1 >= d0 or y1 >= h0 or x1 >= w0:
+        return out
+    td, th, tw = max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1)
+    library().unmold_labels_box_i16(
+        lab, md, mh, mw, _nearest(md, td), _nearest(mh, th),
+        _nearest(mw, tw), out, d0, h0, w0, z1, y1, x1, td, th, tw)
+    return out
+
+
+def unmold_argmax(crop_probs: np.ndarray, box, out_shape_dhw
+                  ) -> np.ndarray:
+    """[md, mh, mw, C] probabilities + integer box -> int16 [D0, H0, W0]
+    labels: the probabilities resampled trilinearly at every voxel of the
+    box (clipped to the volume), argmax over C; zero outside the box."""
+    probs = np.ascontiguousarray(crop_probs, np.float32)
+    if probs.ndim != 4 or min(probs.shape) < 1:
+        raise ValueError(f"probabilities must be [d, h, w, C], got "
+                         f"{probs.shape}")
+    md, mh, mw, c = probs.shape
+    od, oh, ow = (int(v) for v in out_shape_dhw)
+    out = np.zeros((od, oh, ow), np.int16)
+    z1, y1, x1, z2, y2, x2 = (int(v) for v in box)
+    library().unmold_argmax_f32(probs, md, mh, mw, c, out, od, oh, ow,
+                                z1, y1, x1, z2, y2, x2)
+    return out

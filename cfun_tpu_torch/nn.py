@@ -10,17 +10,25 @@ The JAX package's ``conv3d_stem_s2d`` and the ``_conv1ch_s1`` custom VJP
 are workarounds for the TPU's lane padding of 1-channel tensors; they
 compute the same map as a plain stride-2 conv and a plain 1-channel conv,
 which is what the port runs.  ``upsample2_conv`` and
-``upsample2_conv_residual`` are likewise computed as a nearest upsample
-followed by the conv (the same maps as the JAX package's phase-decomposed
-forms, up to reassociation).
+``upsample2_conv_residual`` are the JAX package's phase-decomposed forms
+(one stride-1 3^3 conv with 8x the output channels, then depth-to-space);
+``upsample2_conv_explicit`` and ``upsample2_conv_residual_explicit``
+compute the same maps as a nearest upsample followed by the conv.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 Params = dict
+
+# each up-conv weight leaf's phase kernel by compute dtype, as (the leaf's
+# version, kernel); an entry goes with its leaf
+_phase_kernels = WeakIdKeyDictionary()
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -87,10 +95,106 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
+def _fold_taps(w: torch.Tensor) -> torch.Tensor:
+    """``K[t] = w[t] + w[t - 1]`` (w zero-padded) along each spatial axis
+    of [C_out, C_in, k, k, k], in the order d, h, w: the (k+1)-tap kernel
+    that a k-tap correlation over a nearest 2x upsample is on the
+    dilation-2 grid of its input."""
+    for ax in (2, 3, 4):
+        zero = torch.zeros_like(w.narrow(ax, 0, 1))
+        w = torch.cat([zero, w], dim=ax) + torch.cat([w, zero], dim=ax)
+    return w
+
+
+def _depth_to_space(y: torch.Tensor, c_out: int) -> torch.Tensor:
+    """[N, 8 * C_out, D, H, W] with phase-major channels (qd, qh, qw,
+    c_out) -> [N, C_out, 2D, 2H, 2W], output voxel 2i + q from phase q."""
+    n, _, d, h, w = y.shape
+    y = y.view(n, 2, 2, 2, c_out, d, h, w)
+    return y.permute(0, 4, 5, 1, 6, 2, 7, 3).reshape(n, c_out, 2 * d,
+                                                     2 * h, 2 * w)
+
+
+def _phase_kernel(w: torch.Tensor, dtype,
+                  build: Callable[[torch.Tensor], list]) -> torch.Tensor:
+    """The 8 phase kernels ``build(w)`` ([C_out, C_in, 3, 3, 3] f32 each,
+    in (qd, qh, qw) order) as one [8 * C_out, C_in, 3, 3, 3] kernel in
+    ``dtype``, made at the first use of the leaf ``w`` (and again after an
+    in-place change to it) and kept, as the JAX package composes it once
+    when it compiles: a request makes one conv call per up-conv, not the
+    ~60 small launches of the composition.  It is made on the current
+    stream.  Where autograd tracks ``w`` it is composed on every call
+    instead."""
+    if w.requires_grad and torch.is_grad_enabled():
+        return torch.cat(build(w.float()), dim=0).to(dtype)
+    per_dtype = _phase_kernels.get(w)
+    if per_dtype is None:
+        per_dtype = _phase_kernels[w] = {}
+    version, kernel = per_dtype.get(dtype, (None, None))
+    if version != w._version:
+        with torch.inference_mode(False):
+            kernel = torch.cat(build(w.detach().float()), dim=0).to(dtype)
+        per_dtype[dtype] = (w._version, kernel)
+    return kernel
+
+
+def _phase_conv(x: torch.Tensor, p: Params, build, dtype) -> torch.Tensor:
+    """The phase kernel of ``p["w"]`` as one stride-1 conv with 8 * C_out
+    outputs, then depth-to-space, plus the bias."""
+    c_out = p["w"].shape[0]
+    y = F.conv3d(x.to(dtype), _phase_kernel(p["w"], dtype, build), padding=1)
+    out = _depth_to_space(y, c_out)
+    if "b" in p:
+        out = out + _bcast(p["b"].to(out.dtype), out)
+    return out
+
+
+def _up_phases(w: torch.Tensor) -> list:
+    """The 8 phase kernels of a 3^3 up-conv kernel (:func:`upsample2_conv`)."""
+    k = _fold_taps(w)  # [co, ci, 4, 4, 4]
+
+    def phase(t, ax, q):
+        taps = t.narrow(ax, q, 3)[(slice(None),) * ax + (slice(0, 3, 2),)]
+        zero = torch.zeros_like(taps.narrow(ax, 0, 1))
+        return torch.cat([zero, taps] if q else [taps, zero], dim=ax)
+
+    return [phase(phase(phase(k, 2, qd), 3, qh), 4, qw)
+            for qd in (0, 1) for qh in (0, 1) for qw in (0, 1)]
+
+
+def _residual_phases(w: torch.Tensor) -> list:
+    """The 8 phase kernels of a 5^3 head kernel
+    (:func:`upsample2_conv_residual`)."""
+    w = w.clone()
+    w[:, :, 2, 2, 2] += torch.eye(w.shape[0], w.shape[1], dtype=w.dtype,
+                                  device=w.device)
+    k = _fold_taps(w)  # [co, ci, 6, 6, 6]
+    return [k[:, :, 1 - qd::2][:, :, :3][:, :, :, 1 - qh::2][:, :, :, :3]
+            [..., 1 - qw::2][..., :3]
+            for qd in (0, 1) for qh in (0, 1) for qw in (0, 1)]
+
+
 def upsample2_conv(p: Params, x: torch.Tensor,
                    dtype=torch.float32) -> torch.Tensor:
     """``conv3d(p, upsample_nearest(x))`` for a 3^3 kernel (the U-Net
-    decoder's up-conv)."""
+    decoder's up-conv) as one phase-decomposed conv + depth-to-space, with
+    no 2x input materialized (``cfun_tpu/nn.py::upsample2_conv``).
+
+    Per axis, ``up[2i + q] = x[i]``, so output 2i + q takes two source
+    taps of the composed kernel ``K[t] = w[t] + w[t - 1]``: q = 0 takes
+    (K[0], K[2]) at offsets (-1, 0), q = 1 takes (K[1], K[3]) at (0, +1),
+    each set in a zero-padded 3-tap window.  Differs from
+    :func:`upsample2_conv_explicit` by the reassociation of the folded
+    taps."""
+    if tuple(p["w"].shape[2:]) != (3, 3, 3):
+        raise ValueError(f"upsample2_conv takes a 3^3 kernel, got "
+                         f"{tuple(p['w'].shape[2:])}")
+    return _phase_conv(x, p, _up_phases, dtype)
+
+
+def upsample2_conv_explicit(p: Params, x: torch.Tensor,
+                            dtype=torch.float32) -> torch.Tensor:
+    """``conv3d(p, upsample_nearest(x))`` for a 3^3 kernel, as written."""
     if tuple(p["w"].shape[2:]) != (3, 3, 3):
         raise ValueError(f"upsample2_conv takes a 3^3 kernel, got "
                          f"{tuple(p['w'].shape[2:])}")
@@ -101,10 +205,27 @@ def upsample2_conv_residual(p: Params, x: torch.Tensor,
                             dtype=torch.float32) -> torch.Tensor:
     """``up + conv3d(p, up)`` with ``up = upsample_nearest(x)``: the
     finetune 2x upscale head (5^3 ``out_upscale`` kernel, reference
-    mask_branch.py:216-218).
+    mask_branch.py:216-218) as one phase-decomposed conv + depth-to-space
+    (``cfun_tpu/nn.py::upsample2_conv_residual``): ``up`` is never
+    materialized.
 
-    Computed in the explicit form, so ``up`` is materialized: at heart
-    finetune (one [1, 8, 192, 192, 192] crop in bf16) that is 113 MB, and
-    the conv's output as much again."""
+    The residual is folded into the centre tap (``W' = w + I`` there), the
+    6-tap composed kernel is ``K[t] = W'[t] + W'[t - 1]``, and output phase
+    q of an axis takes ``K[2 * delta + 3 - q]`` for delta in (-1, 0, 1):
+    the strided slices ``K[1 - q::2][:3]``.  The slices are those of a
+    5^3 kernel; another size raises."""
+    if tuple(p["w"].shape[2:]) != (5, 5, 5):
+        raise ValueError(f"upsample2_conv_residual implements the k=5 "
+                         f"head (reference mask_branch.py:216-218); got "
+                         f"kernel {tuple(p['w'].shape[2:])}")
+    return _phase_conv(x, p, _residual_phases, dtype)
+
+
+def upsample2_conv_residual_explicit(p: Params, x: torch.Tensor,
+                                     dtype=torch.float32) -> torch.Tensor:
+    """``up + conv3d(p, up)`` with ``up = upsample_nearest(x)``, as
+    written: ``up`` is materialized (at heart finetune, one [1, 8, 192,
+    192, 192] crop in bf16 is 113 MB, and the conv's output as much
+    again)."""
     up = upsample_nearest(x.to(dtype))
     return up + conv3d(p, up, dtype=dtype)

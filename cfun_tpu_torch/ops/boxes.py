@@ -8,7 +8,31 @@ f32 results agree bit for bit where both run the same IEEE operations.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
+
+# device_constant's tensors by (values, dtype, device): the config- and
+# shape-derived constants of the served graph, a handful a configuration
+_constants: Dict[Tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and kept.  Building a small tensor from host
+    values on a CUDA device is a copy from pageable memory, which waits for
+    the device; the served graph makes none per request, so its launches
+    do not wait on earlier work.  For values fixed by a configuration
+    (its box std, its image shape), not per-request ones.  The tensor is
+    shared: do not write to it."""
+    device = torch.device(device)
+    key = (tuple(float(v) for v in values), dtype, device)
+    t = _constants.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.tensor(key[0], dtype=dtype, device=device)
+        _constants[key] = t
+    return t
 
 
 def box_volume(boxes: torch.Tensor) -> torch.Tensor:
@@ -54,8 +78,7 @@ def clip_boxes(boxes: torch.Tensor, window) -> torch.Tensor:
 
 def _scale(volume_shape, like: torch.Tensor) -> torch.Tensor:
     d, h, w = volume_shape
-    return torch.tensor([d, h, w, d, h, w], dtype=like.dtype,
-                        device=like.device)
+    return device_constant((d, h, w, d, h, w), like.dtype, like.device)
 
 
 def normalize_boxes(boxes: torch.Tensor, volume_shape) -> torch.Tensor:

@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from cfun_tpu_torch.ops.boxes import device_constant
+
 
 def _axis_weights(coords: torch.Tensor, size: int) -> torch.Tensor:
     """Interpolation matrices [..., m, size] for float coords [..., m]:
@@ -68,8 +70,8 @@ def roi_align(vol: torch.Tensor, boxes: torch.Tensor,
     """RoIAlign3D of ``vol [C, D, H, W]`` over [K, 6] normalized boxes ->
     [K, C, *out_shape]."""
     d, h, w = vol.shape[1:]
-    scale = torch.tensor([d, h, w, d, h, w], dtype=torch.float32,
-                         device=boxes.device)
+    scale = device_constant((d, h, w, d, h, w), torch.float32,
+                            boxes.device)
     b = boxes.float() * scale
     lo = torch.floor(b[:, :3])
     hi = torch.ceil(b[:, 3:])

@@ -8,6 +8,11 @@ lists; the port keeps the same nesting and names with PyTorch layouts:
 * linear ``w`` ``[in, out]`` -> ``[out, in]``;
 * biases and frozen-BN ``scale``/``bias``/``mean``/``var`` as they are.
 
+The phase-decomposed up-convs and upscale head (``nn.upsample2_conv``,
+``nn.upsample2_conv_residual``) build their kernels from the same
+``[C_out, C_in, k, k, k]`` leaves at each call, so one tree serves both
+forms.
+
 Every leaf is stored as float32 (the checkpoints may hold float16).  The
 leaves are checked against ``layout(cfg)``: a leaf the port does not use,
 a parameter the tree does not hold and a shape that differs all raise.

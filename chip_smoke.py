@@ -8,7 +8,9 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
           and prints what ptxas reported for each (registers, shared
-          memory, spills)
+          memory, spills); at the same time g++-builds the host ops
+          (csrc/host_ops.cc) and prints the seconds, the flags and the
+          thread counts (OpenMP's, the CPU's, PyTorch's)
   k1      holds the sorted-NMS kernel against its plain PyTorch version on
           edge cases, N from 1 to 4096 around the 64-box words (exact idx /
           keep), on two new inputs replayed through one CUDA graph of it,
@@ -16,10 +18,15 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
   serve   whole-heart inference at full width (192x320x320, stage
           'beginning', heart_inference_config with nms_backend='pallas'):
           weights/heart_synth.npz, three requests through Detector.detect
-          with the kernel launch counts reset before and read after; then
-          the served graph with the plain NMS passed in must give the same
-          detections, and the kernel is held against its plain version on
-          the NMS inputs the served graph produced
+          with the kernel launch counts reset before and read after, each
+          printed with its mold / device / unmold ms, the unmold's parts
+          and the bytes up and down; the mold is the native slab pipeline
+          (int8 slabs from page-locked buffers, uploaded while the next
+          resizes).  One more request with native=False (the NumPy mold)
+          on the same card, for comparison.  Then the served graph with
+          the plain NMS passed in must give the same detections, and the
+          kernel is held against its plain version on the NMS inputs the
+          served graph produced
   k2      holds the fused-conv kernel against its plain PyTorch version
           on edge cases (y within one bf16 ulp, moments to 1e-4, two
           launches bit-equal), among them C_in and C_out around the
@@ -33,7 +40,17 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
   serve_ft  stage 'finetune' with the fused U-Net and
           weights/heart_synth_ft.npz: three requests, K2 at the same
           shapes, 192^3 label volumes, and the same criterion against the
-          dense finetune U-Net
+          dense finetune U-Net; on one served crop in float32 (TF32 off)
+          the phase-decomposed upscale head against the explicit one
+          (1e-5 of the logits' largest magnitude, labels >= 99.9%), and
+          the dense U-Net with the phase up-convs against the explicit
+          ones (2e-4 of the logits' largest magnitude, labels >= 99.9%)
+  stream  Detector.detect_stream over four full-width volumes on the
+          dense path: the same results as serial detect, in order, the
+          sustained ms a volume beside the serial ms, the launch counts
+          reset before and read after; then the synchronizing CUDA calls
+          one request's mold and dispatch make, counted under
+          torch.cuda.set_sync_debug_mode('warn')
   k2_served  the fused-conv kernel at each shape serve_fused launched it
           at, as recorded there: checked as in 'k2', and timed beside its
           bound, the plain version and cuDNN's bf16 conv alone, with its
@@ -41,14 +58,15 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           each shape and the sum weighted by the launches recorded a
           request
   profile where a served request's device time goes (torch.profiler), on
-          the dense, fused and finetune paths, and K1's device time
-          without the host's launch cost (CUDA-graph replay; K2's is
-          taken in phase k2_served)
+          the dense, fused and finetune paths, with every host-device
+          copy by kind (the wire's upload is Pinned -> Device), and K1's
+          device time without the host's launch cost (CUDA-graph replay;
+          K2's is taken in phase k2_served)
   small   the port on the card against the port on the CPU (plain
           versions, float32, TF32 off) on the tiny config
 
-Each served phase sets every kernel's launch count and its record of
-launch shapes to 0 just before its three requests and reads them just
+Each served phase (and 'stream') sets every kernel's launch count and its
+record of launch shapes to 0 just before its requests and reads them just
 after.
 
 Then one JSON line with the kernels, and as the last line
@@ -66,6 +84,8 @@ import os
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WATCHDOG_S = 600
@@ -457,11 +477,16 @@ def profile_requests(det, vols, label):
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  reverse=True)
     busy = sum(d for d, _, _ in dev) / 3e3
-    print(f"profile {label}: device busy {busy:.3f} ms per request",
-          flush=True)
+    n_ops = sum(c for _, _, c in dev) / 3
+    print(f"profile {label}: device busy {busy:.3f} ms per request in "
+          f"{n_ops:g} kernels and copies", flush=True)
     for us, name, count in dev[:14]:
         print(f"profile {label}: {us / 3e3:.3f} ms/request {count / 3:g} "
               f"calls/request {name[:100]}", flush=True)
+    for us, name, count in dev:
+        if "memcpy" in name.lower():
+            print(f"profile {label} copy: {us / 3e3:.4f} ms/request "
+                  f"{count / 3:g} calls/request {name}", flush=True)
     return busy, {name: us / 3e3 for us, name, _ in dev}
 
 
@@ -492,23 +517,24 @@ def serve_three(det, vols, counters, label):
     import torch
 
     cfg = det.cfg
+    det.warmup()
     det.detect(vols[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
-        mod.launch_shapes.clear()
+    reset_counts(counters)
     results, timings = [], []
     for vol in vols:
         results.append(det.detect(vol))
-        timings.append(dict(det.last_timings))
+        timings.append((dict(det.last_timings), dict(det.last_sub_timings),
+                        dict(det.last_wire_bytes)))
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in counters.items()}
     shapes = {name: dict(mod.launch_shapes)
               for name, mod in counters.items()}
 
     n_found = 0
-    for i, (vol, res, t) in enumerate(zip(vols, results, timings)):
+    for i, (vol, res, (t, sub, wire)) in enumerate(zip(vols, results,
+                                                        timings)):
         check(res["mask"].shape == vol.shape, f"{label} {i} mask shape")
         check(res["mask"].dtype == np.int16, f"{label} {i} mask dtype")
         check(int(res["mask"].min()) >= 0 and
@@ -518,16 +544,149 @@ def serve_three(det, vols, counters, label):
               f"{label} {i} rois shape")
         check(np.all(np.isfinite(res["scores"])), f"{label} {i} scores")
         n_found += len(res["scores"])
-        print(f"{label} request {i}: mold {t['mold'] * 1e3:.1f} ms device "
-              f"{t['device'] * 1e3:.1f} ms unmold {t['unmold'] * 1e3:.1f}"
-              f" ms total {t['total'] * 1e3:.1f} ms; rois "
+        print(f"{label} request {i}: {request_line(t, sub, wire)}; rois "
               f"{res['rois'].tolist()} scores {res['scores'].tolist()} "
               f"labelled voxels {int((res['mask'] > 0).sum())}",
               flush=True)
     print(f"{label}: served 3 requests, {n_found} detection(s), launches "
           f"{launches} by shape {shapes}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B", flush=True)
-    return results, launches, shapes, n_found
+    return results, launches, shapes, n_found, [t for t, _, _ in timings]
+
+
+def request_line(t, sub, wire):
+    """One request's buckets (ms), the unmold's parts (ms) and the bytes
+    up and down, as ``Detector.detect`` recorded them."""
+    return (f"mold {t['mold'] * 1e3:.3f} ms device {t['device'] * 1e3:.3f}"
+            f" ms unmold {t['unmold'] * 1e3:.3f} ms total "
+            f"{t['total'] * 1e3:.3f} ms (fetch {sub['fetch'] * 1e3:.3f} "
+            f"unpack {sub['unpack'] * 1e3:.3f} paste "
+            f"{sub['paste'] * 1e3:.3f} ms); bytes up {wire['up']} down "
+            f"{wire['down']}")
+
+
+def reset_counts(counters):
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launch_shapes.clear()
+
+
+def head_check(apply_unet, uparams, crop):
+    """The finetune U-Net's phase forms against its explicit forms on one
+    served crop, float32 with TF32 off: the upscale head alone on the same
+    pre-head logits (within 1e-5 of the logits' largest magnitude, plus
+    1e-5 relative: the CPU test's tolerance scaled), and the whole U-Net
+    with the phase up-convs and head against the explicit one (within
+    2e-4 of its logits' largest magnitude, plus 1e-4 relative: the CPU
+    U-Net test's tolerance scaled the same way); labels (argmax) agreeing
+    on >= 99.9% of voxels for both.  Returns the numbers."""
+    import torch
+
+    from cfun_tpu_torch import nn as tnn
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            pre = apply_unet(uparams, crop, stage="beginning",
+                             up_impl="phase")
+            phase = tnn.upsample2_conv_residual(uparams["out_upscale"], pre)
+            explicit = tnn.upsample2_conv_residual_explicit(
+                uparams["out_upscale"], pre)
+            head_err = float((phase - explicit).abs().max())
+            scale = float(explicit.abs().max())
+            head_ok = bool(((phase - explicit).abs() <=
+                            1e-5 * scale + 1e-5 * explicit.abs()).all())
+            head_agree = float((phase.argmax(1) == explicit.argmax(1))
+                               .float().mean())
+            del phase, explicit
+            full_phase = apply_unet(uparams, crop, stage="finetune",
+                                    up_impl="phase", head_impl="phase")
+            full_explicit = apply_unet(uparams, crop, stage="finetune")
+            unet_err = float((full_phase - full_explicit).abs().max())
+            unet_scale = float(full_explicit.abs().max())
+            unet_ok = bool(((full_phase - full_explicit).abs() <=
+                            2e-4 * unet_scale + 1e-4 * full_explicit.abs())
+                           .all())
+            unet_agree = float((full_phase.argmax(1) ==
+                                full_explicit.argmax(1)).float().mean())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    out = {"head_max_err": head_err, "head_logit_max": scale,
+           "head_label_agree": head_agree, "unet_max_err": unet_err,
+           "unet_logit_max": unet_scale, "unet_label_agree": unet_agree}
+    print(f"finetune crop {tuple(crop.shape)} f32: phase head vs explicit "
+          f"max err {head_err:.3g} (logits up to {scale:.4g}), labels agree"
+          f" {head_agree:.6f}; U-Net with phase up-convs + head vs explicit"
+          f" max err {unet_err:.3g} (logits up to {unet_scale:.4g}), labels"
+          f" agree {unet_agree:.6f}", flush=True)
+    check(head_ok, f"phase head within 1e-5 of the logits' range: {out}")
+    check(unet_ok, f"phase U-Net within 2e-4 of the logits' range: {out}")
+    check(head_agree >= 0.999 and unet_agree >= 0.999,
+          f"phase forms' labels agree on >= 99.9%: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def stage_timeline(det):
+    """Record when each of ``det``'s stages ran: a list of (stage, thread
+    name, start ms, end ms) that ``mold``, ``_dispatch`` (the host's
+    enqueue of the device graph) and ``_finish`` (the wait for the output,
+    the unpack and the paste) append to while the block runs."""
+    import threading
+
+    t0 = time.perf_counter()
+    records = []
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                records.append((name, threading.current_thread().name,
+                                (start - t0) * 1e3,
+                                (time.perf_counter() - t0) * 1e3))
+        return run
+
+    for name in ("mold", "_dispatch", "_finish"):
+        setattr(det, name, timed(name.strip("_"), getattr(det, name)))
+    try:
+        yield records
+    finally:
+        for name in ("mold", "_dispatch", "_finish"):
+            delattr(det, name)
+
+
+def print_timeline(label, records):
+    for name, thread, start, end in records:
+        print(f"{label} timeline: {name:8s} {start:9.3f} -> {end:9.3f} ms "
+              f"({end - start:7.3f} ms) on {thread}", flush=True)
+
+
+def sync_count(det, vol):
+    """Synchronizing CUDA calls made by one request's mold and dispatch
+    (everything the host enqueues before it waits for the output), under
+    torch.cuda.set_sync_debug_mode('warn').  Returns (count, distinct
+    messages)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            wire, window, _ = det.mold(vol)
+            pending = det._dispatch(wire, window)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    pending.event.synchronize()
+    msgs = [str(w.message) for w in seen
+            if "called a synchronizing" in str(w.message)]
+    return len(msgs), sorted(set(m.splitlines()[0][:160] for m in msgs))
 
 
 def capture_crop(cfun, det, vol):
@@ -563,6 +722,7 @@ def main() -> int:
 
     from cfun_tpu_torch import _build
     from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch import native
     from cfun_tpu_torch import weights
     from cfun_tpu_torch.inference import Detector
     from cfun_tpu_torch.models import cfun
@@ -587,10 +747,20 @@ def main() -> int:
               f"(nvidia-smi: {card})", flush=True)
 
     with phase("build"):
-        lib = _build.library()
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            host_built = ex.submit(native.library)
+            lib = _build.library()
+            host_lib = host_built.result()
         print(f"kernels {os.path.relpath(lib._name, ROOT)} built in "
               f"{_build.last_build_seconds:.3f} s from "
               f"{len(_build.sources())} source(s)", flush=True)
+        threads = {"openmp": native.num_threads(), "cpus": os.cpu_count(),
+                   "torch": torch.get_num_threads()}
+        print(f"host ops {os.path.relpath(host_lib._name, ROOT)} built in "
+              f"{_build.last_host_build_seconds:.3f} s with g++ "
+              f"{' '.join(_build.GXX_FLAGS)}; threads: OpenMP "
+              f"{threads['openmp']}, os.cpu_count() {threads['cpus']}, "
+              f"torch.get_num_threads() {threads['torch']}", flush=True)
         ptxas = ptxas_summary(_build.last_build_log)
         for k in ptxas:
             print(f"ptxas {k['kernel']}: {k['registers']} registers, "
@@ -626,14 +796,32 @@ def main() -> int:
         print(f"weights {os.path.relpath(wpath, ROOT)} tag={meta.get('tag')} "
               f"stage={meta.get('stage')}", flush=True)
         det = Detector(cfg, params)
+        check(det._pipelined and len(det._slab_ranges()) == cfg.wire_slabs,
+              "the served mold is the native slab pipeline")
         vols = [synth_heart(seed) for seed in range(3)]
-        results, served, served_shapes, n_found = serve_three(
+        results, served, served_shapes, n_found, serve_t = serve_three(
             det, vols, counters, "serve")
         served_launches = served["sorted_nms"]
         check(served_launches >= 1, "the served path launched sorted_nms")
         check(served_launches == 6, "two sorted_nms launches per request")
         check(served["fused_conv3d"] == 0, "the dense U-Net launches no K2")
         check(n_found >= 1, "the trained model detects the synthetic heart")
+
+        # the same card and weights with the NumPy mold and unmold
+        ndet = Detector(cfg, det.params, native=False)
+        nres = ndet.detect(vols[0])
+        numpy_t = dict(ndet.last_timings)
+        print(f"serve native=False request 0: "
+              f"{request_line(numpy_t, ndet.last_sub_timings, ndet.last_wire_bytes)}"
+              f"; rois {nres['rois'].tolist()} (native "
+              f"{results[0]['rois'].tolist()})", flush=True)
+        # its int8 affine comes from the molded volume's exact stats, not
+        # from a sample of the raw one: the wires differ by a step here
+        # and there, and the box may move by a voxel
+        check(nres["rois"].shape == results[0]["rois"].shape and
+              np.abs(nres["rois"] - results[0]["rois"]).max(initial=0) <= 1,
+              "the NumPy mold gives the native mold's detection")
+        del ndet
 
         # the same request through the plain NMS: same detections
         wire, window, _ = det.mold(vols[0])
@@ -689,7 +877,7 @@ def main() -> int:
         fcfg = port_config.heart_inference_config(
             "beginning", nms_backend="pallas", pallas_unet=True)
         fdet = Detector(fcfg, params)
-        fresults, fused_launches, fused_shapes, _ = serve_three(
+        fresults, fused_launches, fused_shapes, _, fused_t = serve_three(
             fdet, vols, counters, "serve_fused")
         check(fused_launches["fused_conv3d"] == 36,
               f"12 K2 launches a request, got {fused_launches}")
@@ -728,8 +916,8 @@ def main() -> int:
         ftdet = Detector(tcfg_ft, params_ft)
         check(ftdet.labels_shape == (1, 192, 192, 192),
               f"finetune labels shape {ftdet.labels_shape}")
-        _, ft_launches, ft_shapes, _ = serve_three(ftdet, vols, counters,
-                                                   "serve_ft")
+        _, ft_launches, ft_shapes, _, ft_t = serve_three(
+            ftdet, vols, counters, "serve_ft")
         check(ft_launches["fused_conv3d"] == 36,
               f"12 K2 launches a request, got {ft_launches}")
         check(ft_shapes["fused_conv3d"] == k2_record,
@@ -748,6 +936,47 @@ def main() -> int:
         crit_ft = unet_criterion(apply_unet, apply_unet_fused,
                                  ftdet.params["mask"]["unet"], crop,
                                  "finetune")
+        crit_phase = head_check(apply_unet, ftdet.params["mask"]["unet"],
+                                crop)
+
+    with phase("stream"):
+        svols = [synth_heart(seed) for seed in range(4)]
+        torch.cuda.synchronize()
+        with stage_timeline(det) as serial_records:
+            t0 = time.perf_counter()
+            serial = [det.detect(v) for v in svols]
+            serial_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts(counters)
+        with stage_timeline(det) as stream_records:
+            t0 = time.perf_counter()
+            streamed = list(det.detect_stream(svols))
+            stream_ms = (time.perf_counter() - t0) * 1e3
+        stream_launches = {name: mod.launches
+                           for name, mod in counters.items()}
+        print_timeline("serial", serial_records)
+        print_timeline("stream", stream_records)
+        check(len(streamed) == len(serial), "stream: one result a volume")
+        for i, (a, b) in enumerate(zip(streamed, serial)):
+            check(np.array_equal(a["mask"], b["mask"]) and
+                  np.array_equal(a["rois"], b["rois"]) and
+                  np.array_equal(a["scores"], b["scores"]),
+                  f"stream result {i} equals serial detect")
+        check(stream_launches["sorted_nms"] == 2 * len(svols),
+              f"two K1 launches a volume in the stream: {stream_launches}")
+        n_sync, sync_msgs = sync_count(det, svols[0])
+        # the pipeline's period once full: the ms between the first and the
+        # last result over the results in between
+        done = sorted(end for name, _, _, end in stream_records
+                      if name == "finish")
+        period_ms = (done[-1] - done[0]) / (len(done) - 1)
+        print(f"stream: {len(svols)} volumes equal serial detect; "
+              f"{stream_ms / len(svols):.3f} ms a volume sustained "
+              f"({stream_ms:.3f} ms in all; {period_ms:.3f} ms between "
+              f"results) against {serial_ms / len(svols):.3f} ms a volume "
+              f"serial ({serial_ms:.3f} ms); launches {stream_launches}",
+              flush=True)
+        print(f"stream: one request's mold + dispatch made {n_sync} "
+              f"synchronizing CUDA call(s) {sync_msgs}", flush=True)
 
     with phase("k2_served"):
         k2_shapes = []
@@ -797,7 +1026,11 @@ def main() -> int:
               flush=True)
 
     with phase("profile"):
-        busy_dense, _ = profile_requests(det, vols, "serve")
+        busy_dense, dense_kernels = profile_requests(det, vols, "serve")
+        h2d = {name: ms for name, ms in dense_kernels.items()
+               if "memcpy htod" in name.lower()}
+        check(any("pinned" in name.lower() for name in h2d),
+              f"the wire uploads from page-locked memory: {h2d}")
         busy_fused, by_kernel = profile_requests(fdet, vols, "serve_fused")
         busy_ft, _ = profile_requests(ftdet, vols, "serve_ft")
         k2_busy = sum(ms for name, ms in by_kernel.items()
@@ -843,6 +1076,8 @@ def main() -> int:
               f"{r_cpu['rois'].tolist()}, labels agree {small_agree}",
               flush=True)
 
+    for d in (det, fdet, ftdet):
+        d.close()
     total = time.perf_counter() - _T0
     print(f"total {total:.3f} s", flush=True)
     per_req_ms = sum(s["ms"] for s in kern)
@@ -864,7 +1099,8 @@ def main() -> int:
         "ptxas": [k for k in ptxas if k["kernel"].startswith(K1_KERNELS)],
         "launches_by_path": {"serve": served["sorted_nms"],
                              "serve_fused": fused_launches["sorted_nms"],
-                             "serve_ft": ft_launches["sorted_nms"]},
+                             "serve_ft": ft_launches["sorted_nms"],
+                             "stream": stream_launches["sorted_nms"]},
         "per_shape": kern}, {
         "name": "fused_conv3d", "route": "cuda",
         "route_note": "tensor cores (mma.sync m16n8k16 bf16, f32 "
@@ -877,7 +1113,8 @@ def main() -> int:
         "launches_per_request": fused_launches["fused_conv3d"] / 3,
         "launches_by_path": {"serve": served["fused_conv3d"],
                              "serve_fused": fused_launches["fused_conv3d"],
-                             "serve_ft": ft_launches["fused_conv3d"]},
+                             "serve_ft": ft_launches["fused_conv3d"],
+                             "stream": stream_launches["fused_conv3d"]},
         "max_abs_err": max(s["max_abs_err"] for s in k2_shapes),
         "ms": k2_req["ms"], "device_ms": k2_req["device_ms"],
         "plain_ms": k2_req["plain_ms"], "bound_ms": k2_req["bound_ms"],
@@ -892,6 +1129,25 @@ def main() -> int:
                    "alone: no PyTorch call computes the fused function",
         "unet_criterion": {"beginning": crit_fused, "finetune": crit_ft},
         "per_shape": k2_shapes}]}
+    serving = {"serving": {
+        "card": card, "threads": threads,
+        "request_ms": {label: [{k: v * 1e3 for k, v in t.items()}
+                               for t in ts]
+                       for label, ts in (("serve", serve_t),
+                                         ("serve_fused", fused_t),
+                                         ("serve_ft", ft_t))},
+        "numpy_mold_request_ms": {k: v * 1e3 for k, v in numpy_t.items()},
+        "device_busy_ms": {"serve": busy_dense, "serve_fused": busy_fused,
+                           "serve_ft": busy_ft},
+        "h2d_ms": h2d,
+        "stream": {"volumes": len(svols),
+                   "sustained_ms_per_volume": stream_ms / len(svols),
+                   "serial_ms_per_volume": serial_ms / len(svols),
+                   "ms_between_results": period_ms,
+                   "sync_calls_per_request": n_sync,
+                   "sync_messages": sync_msgs},
+        "phase_forms": crit_phase}}
+    print(json.dumps(serving), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

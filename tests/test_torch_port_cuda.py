@@ -114,6 +114,50 @@ def test_detector_card_matches_cpu(cuda):
     assert float((got["mask"] == want["mask"]).mean()) >= 0.99
 
 
+def _tiny_detector(device, **overrides):
+    cfg = pconfig.tiny_config(detection_max_instances=1,
+                              wire_image_dtype="int8", fast_unmold=True,
+                              device_normalize=True, **overrides)
+    params = weights.init_params(cfg, seed=0)
+    params["classifier"]["cls"]["b"] = torch.tensor([0.0, 3.0])
+    return Detector(cfg, params, device=device)
+
+
+def _volumes(shapes, seed=7):
+    rng = np.random.default_rng(seed)
+    vols = []
+    for i, shape in enumerate(shapes):
+        v = rng.normal(size=shape).astype(np.float32)
+        v[10:40, 10:40, 5:25] += 2.0 + i
+        vols.append(v)
+    return vols
+
+
+def test_pinned_slab_uploads_match_the_cpu_mold(cuda):
+    """The slab pipeline's uploads from reused page-locked buffers: each
+    of four volumes in a row, molded before the last one's upload is
+    read, lands on the card as the CPU mold writes it."""
+    det = _tiny_detector(cuda, wire_slabs=3)
+    cpu = _tiny_detector("cpu", wire_slabs=3)
+    assert det._pipelined and len(det._slab_ranges()) == 3
+    vols = _volumes([(60, 70, 30), (80, 96, 40), (64, 64, 32), (50, 90, 20)])
+    wires = [det.mold(v)[0] for v in vols]
+    for v, wire in zip(vols, wires):
+        assert torch.equal(wire.cpu(), cpu.mold(v)[0])
+
+
+def test_detect_stream_on_the_card(cuda):
+    det = _tiny_detector(cuda, wire_slabs=2)
+    vols = _volumes([(60, 70, 30), (80, 96, 40), (64, 64, 32)])
+    serial = [det.detect(v) for v in vols]
+    streamed = list(det.detect_stream(vols))
+    assert len(streamed) == len(serial)
+    for s, r in zip(streamed, serial):
+        np.testing.assert_array_equal(s["mask"], r["mask"])
+        np.testing.assert_array_equal(s["rois"], r["rois"])
+        np.testing.assert_array_equal(s["scores"], r["scores"])
+
+
 @pytest.mark.parametrize("b,c,co,d,h,w,pre_lrelu", [
     (1, 4, 4, 1, 8, 8, True), (2, 6, 5, 5, 7, 9, True),
     (2, 6, 5, 5, 7, 9, False), (1, 33, 47, 9, 9, 9, True),

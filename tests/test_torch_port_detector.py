@@ -3,11 +3,13 @@ package, on the CPU.
 
 ``Detector.detect`` of both packages on the same raw volume and the same
 weights (tiny_config with the heart inference overrides, at 'beginning'
-and at 'finetune', whose 2x U-Net output is the label volume).  The JAX
-detector reads ``native.available()`` in ``__init__``; it is patched to
-False inside the test so both take the NumPy mold.  Criteria: the molded
-int8 wire bit for bit; rois, class ids equal; scores to rtol 1e-5; label
-volumes agreeing on >= 99.9% of voxels.
+and at 'finetune', whose 2x U-Net output is the label volume), twice:
+with the NumPy mold on both sides (the JAX detector reads
+``native.available()`` in ``__init__``, patched to False there; the port
+is given ``native=False``), and with the native host ops on both sides,
+the way both serve (the slab-pipelined int8 mold on the packed cases).
+Criteria: the molded int8 wire bit for bit; rois, class ids equal; scores
+to rtol 1e-5; label volumes agreeing on >= 99.9% of voxels.
 """
 
 import json
@@ -58,26 +60,25 @@ def test_mold_matches_jax(shape):
                                   want)
 
 
-@pytest.mark.parametrize("overrides", [HEART, dict(detection_max_instances=1,
-                                                    approx_topk=False),
-                                       dict(HEART, stage="finetune"),
-                                       dict(HEART, num_classes=17)],
-                         ids=["heart_fast", "bf16_wire_probs",
-                              "heart_fast_finetune",
-                              "fast_unpacked_17_classes"])
-def test_detect_matches_jax(monkeypatch, overrides):
-    """Both detectors on one volume and shared weights.  With 17 classes
-    the fast path's labels do not fit the 4-bit packing: the graph returns
-    int8 labels unpacked and ``detect`` reads ``mask_labels``, as the JAX
-    ``_finish`` does."""
-    monkeypatch.setattr(native, "available", lambda: False)
-    jcfg = tiny_config(**overrides, nms_backend="scan")
-    pcfg = pconfig.tiny_config(**overrides)
-    jp = jax_params(jcfg, 2)
-    vol = _volume(3)
-    want = JaxDetector(jcfg, jp).detect(vol)
-    got = Detector(pcfg, weights.params_from_numpy(jp, pcfg),
-                   device="cpu").detect(vol)
+OVERRIDES = [HEART, dict(detection_max_instances=1, approx_topk=False),
+             dict(HEART, stage="finetune"), dict(HEART, num_classes=17)]
+OVERRIDE_IDS = ["heart_fast", "bf16_wire_probs", "heart_fast_finetune",
+                "fast_unpacked_17_classes"]
+
+
+@pytest.fixture(scope="module")
+def shared_params():
+    """The JAX tree for each override set, and its conversion."""
+    out = {}
+    for name, overrides in zip(OVERRIDE_IDS, OVERRIDES):
+        jcfg = tiny_config(**overrides, nms_backend="scan")
+        pcfg = pconfig.tiny_config(**overrides)
+        jp = jax_params(jcfg, 2)
+        out[name] = (jcfg, pcfg, jp, weights.params_from_numpy(jp, pcfg))
+    return out
+
+
+def _assert_same_result(got, want, vol):
     assert len(want["scores"]) >= 1, "no detection to compare"
     np.testing.assert_array_equal(got["rois"], want["rois"])
     np.testing.assert_array_equal(got["class_ids"], want["class_ids"])
@@ -86,6 +87,51 @@ def test_detect_matches_jax(monkeypatch, overrides):
     assert got["mask"].dtype == np.int16
     agree = float((got["mask"] == want["mask"]).mean())
     assert agree >= 0.999, f"label volumes agree on {agree:.5f}"
+
+
+@pytest.mark.parametrize("name", OVERRIDE_IDS)
+def test_detect_matches_jax(monkeypatch, shared_params, name):
+    """Both detectors on one volume and shared weights, with the NumPy
+    mold and unmold.  With 17 classes the fast path's labels do not fit
+    the 4-bit packing: the graph returns int8 labels unpacked and
+    ``detect`` reads ``mask_labels``, as the JAX ``_finish`` does."""
+    monkeypatch.setattr(native, "available", lambda: False)
+    jcfg, pcfg, jp, tp = shared_params[name]
+    vol = _volume(3)
+    want = JaxDetector(jcfg, jp).detect(vol)
+    got = Detector(pcfg, tp, device="cpu", native=False).detect(vol)
+    _assert_same_result(got, want, vol)
+
+
+@pytest.mark.parametrize("name", OVERRIDE_IDS)
+def test_detect_matches_jax_native(shared_params, name):
+    """The same with the native host ops on both sides, as both serve:
+    the slab-pipelined int8 mold on the packed cases (engaged on both),
+    the one-pass native molds otherwise, the native unmolds.  The wire is
+    bit-equal (the JAX slabs concatenated against the port's device
+    tensor), and so are the bytes each detect() moved."""
+    if not native.available():
+        pytest.fail("the JAX package's native library did not build")
+    jcfg, pcfg, jp, tp = shared_params[name]
+    jdet = JaxDetector(jcfg, jp)
+    det = Detector(pcfg, tp, device="cpu")
+    packed = name != "fast_unpacked_17_classes" and "fast" in name
+    assert jdet._pipelined == det._pipelined == packed
+    vol = _volume(3)
+    slabs, jwin, _ = jdet._mold(vol)
+    wire, pwin, _ = det.mold(vol)
+    jwire = np.concatenate([np.asarray(s) for s in slabs], axis=0)
+    if jwire.dtype != np.int8:  # the bf16 wire: compare the bits
+        jwire = jwire.view(np.uint16)
+        pwire = wire[0, 0].view(torch.int16).numpy().view(np.uint16)
+    else:
+        pwire = wire[0, 0].numpy()
+    np.testing.assert_array_equal(pwire, jwire)
+    np.testing.assert_array_equal(pwin, jwin)
+    want = jdet.detect(vol)
+    got = det.detect(vol)
+    _assert_same_result(got, want, vol)
+    assert det.last_wire_bytes == jdet.last_wire_bytes
 
 
 def test_detector_without_cuda_raises():

@@ -47,3 +47,23 @@ def test_port_sources_name_no_jax_import():
                 if pattern.match(line):
                     offenders.append(f"{os.path.relpath(path, ROOT)}:{i}")
     assert len(files) > 20 and offenders == []
+
+
+def test_port_sources_name_no_native_dir():
+    """The port builds its own host ops (``cfun_tpu_torch/csrc/
+    host_ops.cc``) and names no file of the JAX package's ``native/``."""
+    pattern = re.compile(r"(?<![\w.-])native/")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "cfun_tpu_torch")):
+        if os.path.basename(d) == "_build":
+            continue
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cc", ".cu"))]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pattern.search(line):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{i}")
+    assert any(p.endswith("host_ops.cc") for p in files)
+    assert offenders == []

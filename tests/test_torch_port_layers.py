@@ -125,14 +125,98 @@ def test_elementwise_and_resampling(name):
 
 
 def test_upsample2_conv():
-    """The JAX phase-decomposed up-conv and the port's upsample + conv
-    compute the same map (up to reassociation of the folded taps)."""
+    """The port's phase-decomposed up-conv against the JAX one (equal to
+    the last bit here; held to 1e-5), and the port's explicit upsample +
+    conv against it (the folded taps reassociate: 3.8e-6 at most here,
+    outputs up to ~7)."""
     rng = _rng(6)
     x = rng.normal(size=(2, 4, 5, 6, 3)).astype(np.float32)
     p, tp = _conv_params(rng, (3, 3, 3), 3, 4, bias=False)
     want = np.asarray(jnn.upsample2_conv(p, jnp.asarray(x)))
     got = _to_np(tnn.upsample2_conv(tp, _to_t(x)))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+    np.testing.assert_allclose(got, want, **TOL)
+    explicit = _to_np(tnn.upsample2_conv_explicit(tp, _to_t(x)))
+    np.testing.assert_allclose(explicit, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_upsample2_conv_bias_and_layout(bias):
+    """With a bias, odd sizes and C_in != C_out: phase against the JAX
+    phase form and the port's explicit form, to 1e-5."""
+    rng = _rng(7)
+    x = rng.normal(size=(1, 3, 7, 2, 5)).astype(np.float32)
+    p, tp = _conv_params(rng, (3, 3, 3), 5, 2, bias=bias)
+    want = np.asarray(jnn.upsample2_conv(p, jnp.asarray(x)))
+    got = tnn.upsample2_conv(tp, _to_t(x))
+    assert tuple(got.shape) == (1, 2, 6, 14, 4)
+    np.testing.assert_allclose(_to_np(got), want, **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), tnn.upsample2_conv_explicit(tp, _to_t(x)).numpy(),
+        **TOL)
+
+
+def test_upsample2_conv_residual():
+    """The finetune head's phase form (residual folded into the centre
+    tap, 6-tap composed kernel, strided phase slices) against the JAX one
+    (equal to the last bit here) and the explicit ``up + conv(up)``
+    (6.2e-6 at most here, outputs up to ~9), to 1e-5; another kernel size
+    raises, as in the JAX package."""
+    rng = _rng(8)
+    x = rng.normal(size=(2, 4, 5, 6, 3)).astype(np.float32)
+    p, tp = _conv_params(rng, (5, 5, 5), 3, 3, bias=False)
+    p["w"] *= 0.5
+    tp["w"] *= 0.5
+    want = np.asarray(jnn.upsample2_conv_residual(p, jnp.asarray(x)))
+    got = tnn.upsample2_conv_residual(tp, _to_t(x))
+    np.testing.assert_allclose(_to_np(got), want, **TOL)
+    explicit = tnn.upsample2_conv_residual_explicit(tp, _to_t(x))
+    np.testing.assert_allclose(got.numpy(), explicit.numpy(), **TOL)
+    _, tp3 = _conv_params(rng, (3, 3, 3), 3, 3, bias=False)
+    with pytest.raises(ValueError, match="k=5"):
+        tnn.upsample2_conv_residual(tp3, _to_t(x))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_phase_kernel_made_once_per_leaf(k):
+    """The phase kernel of a weight leaf is composed at its first use and
+    kept per dtype; an in-place change to the leaf makes it anew (the
+    output follows the JAX form on the new weights); a leaf that autograd
+    tracks is composed on each call, gets its gradient, and is not kept."""
+    up = {3: (tnn.upsample2_conv, jnn.upsample2_conv),
+          5: (tnn.upsample2_conv_residual, jnn.upsample2_conv_residual)}
+    port_fn, jax_fn = up[k]
+    rng = _rng(10 + k)
+    x = rng.normal(size=(1, 4, 3, 5, 3)).astype(np.float32)
+    # the 5^3 head has no bias (the JAX form takes none)
+    p, tp = _conv_params(rng, (k, k, k), 3, 3, bias=k == 3)
+    port_fn(tp, _to_t(x))
+    kept = tnn._phase_kernels[tp["w"]][torch.float32]
+    port_fn(tp, _to_t(x))
+    assert tnn._phase_kernels[tp["w"]][torch.float32][1] is kept[1]
+    port_fn(tp, _to_t(x), dtype=torch.bfloat16)
+    assert set(tnn._phase_kernels[tp["w"]]) == {torch.float32,
+                                                 torch.bfloat16}
+    p["w"] *= 0.5
+    tp["w"].mul_(0.5)
+    got = port_fn(tp, _to_t(x))
+    assert tnn._phase_kernels[tp["w"]][torch.float32][1] is not kept[1]
+    np.testing.assert_allclose(_to_np(got),
+                               np.asarray(jax_fn(p, jnp.asarray(x))), **TOL)
+    w = tp["w"].clone().requires_grad_(True)
+    port_fn({**tp, "w": w}, _to_t(x)).sum().backward()
+    assert w.grad is not None and float(w.grad.abs().sum()) > 0
+    assert w not in tnn._phase_kernels
+
+
+def test_depth_to_space_matches_jax_reshape():
+    """The NCDHW depth-to-space against the JAX NDHWC reshape
+    (``cfun_tpu/nn.py:318-322``) on phase-major channels."""
+    n, d, h, w, co = 2, 3, 4, 5, 3
+    y = _rng(9).normal(size=(n, d, h, w, 8 * co)).astype(np.float32)
+    want = y.reshape(n, d, h, w, 2, 2, 2, co).transpose(
+        0, 1, 4, 2, 5, 3, 6, 7).reshape(n, 2 * d, 2 * h, 2 * w, co)
+    got = tnn._depth_to_space(_to_t(y), co)
+    np.testing.assert_array_equal(_to_np(got), want)
 
 
 def _boxes(seed, n):

@@ -165,3 +165,41 @@ def test_unet_finetune_is_not_ported(shared):
     assert tuple(got.shape) == (1, jcfg.num_classes, 32, 32, 32)
     np.testing.assert_allclose(got.numpy(), _ncdhw(want), rtol=1e-4,
                                atol=2e-4)
+
+
+@pytest.mark.parametrize("stage", ["beginning", "finetune"])
+def test_unet_phase_forms_at_32(shared, monkeypatch, stage):
+    """apply_unet at a 32^3 crop, where exactly one decoder up-conv (l3,
+    16^3 in) passes the ``nsp >= 2048`` gate: the phase forms against the
+    JAX U-Net with ``up_impl='phase', head_impl='phase'``, and against the
+    port's explicit forms, at the 'beginning' U-Net's tolerance."""
+    from cfun_tpu_torch import nn as tnn
+
+    jcfg, _, jp, tp = shared
+    crops = np.random.default_rng(4).normal(
+        size=(1, 32, 32, 32, 1)).astype(np.float32)
+    want = jax.jit(lambda p, x: jax_unet(p, x, stage=stage,
+                                         up_impl="phase",
+                                         head_impl="phase"))(
+        jp["mask"]["unet"], jnp.asarray(crops))
+    calls = []
+    phase = tnn.upsample2_conv
+
+    def counted(p, v, **kw):
+        calls.append(tuple(v.shape[2:]))
+        return phase(p, v, **kw)
+
+    monkeypatch.setattr(tnn, "upsample2_conv", counted)
+    x = torch.from_numpy(_ncdhw(crops).copy())
+    got = apply_unet(tp["mask"]["unet"], x, stage=stage, up_impl="phase",
+                     head_impl="phase")
+    assert calls == [(16, 16, 16)]
+    side = 64 if stage == "finetune" else 32
+    assert tuple(got.shape) == (1, jcfg.num_classes, side, side, side)
+    np.testing.assert_allclose(got.numpy(), _ncdhw(want), rtol=1e-4,
+                               atol=2e-4)
+    explicit = apply_unet(tp["mask"]["unet"], x, stage=stage)
+    np.testing.assert_allclose(got.numpy(), explicit.numpy(), rtol=1e-4,
+                               atol=2e-4)
+    head = apply_mask_head(tp["mask"], x, stage=stage)
+    np.testing.assert_array_equal(head.numpy(), got.numpy())
