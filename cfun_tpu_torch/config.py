@@ -1,7 +1,7 @@
 """Experiment configuration of the PyTorch port.
 
 A copy of ``cfun_tpu/config.py`` (the ``Config`` dataclass and the heart
-presets): the port imports nothing of the JAX package, and the two copies
+and LiTS presets): the port imports nothing of the JAX package, and the two copies
 must describe the same experiments.  Fields that only the TPU build reads
 (remat, sharding, Pallas switches) are kept so a ``Config`` reads the same
 in both packages; the port ignores them.  ``nms_backend`` is one of them:
@@ -273,6 +273,71 @@ def heart_inference_config(stage: str = "beginning", **overrides) -> Config:
     return heart_config(stage=stage, detection_max_instances=1,
                         wire_image_dtype="int8", fast_unmold=True,
                         device_normalize=True).replace(**overrides)
+
+
+def lits_config(stage: str = "beginning", **overrides) -> Config:
+    """Liver/tumor (LiTS 2017) experiment config (LiTS_2017/LiTS_main.py:28-176).
+
+    Stage semantics (SURVEY.md s2.2 L5): 'beginning' trains detection only;
+    'together'/'finetune' freeze backbone+RPN and train the mask branch.
+    """
+    stage_rois = 4 if stage in ("together", "finetune") else 50
+    stage_ratio = 1.0 if stage in ("together", "finetune") else 0.33
+    return Config(
+        name="lits",
+        stage=stage,
+        num_classes=3,  # bg + liver + tumor (LiTS_main.py:40)
+        image_shape=(256, 320, 320),
+        backbone="P3D35",  # bottleneck depths (4, 5) (LiTS_2017/backbone.py:166-175)
+        backbone_channels=(24, 48),
+        backbone_stem_kernel=(5, 7, 7),  # LiTS_2017/backbone.py:124
+        fpn_channels=160,  # LiTS_2017/LiTS_main.py:105
+        rpn_conv_channels=320,
+        fc_size=320,
+        unet_base_channels=32,
+        post_nms_rois_inference=50,
+        steps_per_epoch=100,
+        validation_steps=20,
+        train_rois_per_image=stage_rois,
+        roi_positive_ratio=stage_ratio,
+        mask_pool_size=(32, 80, 80),  # LiTS_2017/LiTS_main.py:142
+        detection_nms_threshold=0.7,  # LiTS_2017/LiTS_main.py:150
+        intensity_norm="hu_window",
+        pad_shape=(536, 646, 646),  # (D,H,W) of PAD_IMAGE_SHAPE [646,646,536]
+        mask_class_weights=(1.0, 1.0, 100.0),  # LiTS_2017/model.py:926-927
+        # int8 wires (train or inference) quantize the [0, 1] HU-windowed
+        # volume: full int8 range, not the heart default's z-score +-5 sigma
+        wire_int8_scale=127.0,
+        augment_rotate_degrees=30.0,
+        unet_dropout_rate=0.0,  # dropout disabled (LiTS_2017/mask_branch.py:19,130)
+        # the JAX package's training memory setting (the port ignores it)
+        remat_trunk=True,
+        remat_unet=(stage == "finetune"),
+        loss_weights=(  # LiTS_2017/LiTS_main.py:163-170
+            ("rpn_class_loss", 50.0),
+            ("rpn_bbox_loss", 5.0),
+            ("mrcnn_class_loss", 50.0),
+            ("mrcnn_bbox_loss", 5.0),
+            ("mrcnn_mask_loss", 2.0),
+            ("mrcnn_mask_edge_loss", 0.25),
+        ),
+    ).replace(**overrides)
+
+
+def lits_inference_config(stage: str = "finetune", **overrides) -> Config:
+    """LiTS inference override (LiTS_2017/LiTS_main.py:446-451).
+
+    Wire defaults for link-bound hosts: int8 upload of the [0, 1]
+    HU-windowed volume and the device-side overlap-tile unmold
+    (``fast_unmold`` with name='lits'), which computes the reference's
+    trilinear-paste + hit-count average + argmax (LiTS_2017/utils.py:
+    383-408) ON DEVICE in molded coordinates, so int8 labels cross the
+    wire instead of the [N, mask, C] float probability stack.
+    ``fast_unmold=False`` restores the host probability-stack path.
+    """
+    return lits_config(stage, detection_max_instances=10,
+                       wire_image_dtype="int8", wire_int8_scale=127.0,
+                       fast_unmold=True).replace(**overrides)
 
 
 def tiny_config(stage: str = "beginning", **overrides) -> Config:

@@ -1,4 +1,4 @@
-// Host-side kernels of the heart serving path: the mold (raw volume to the
+// Host-side kernels of the serving path: the mold (raw volume to the
 // molded device layout, optionally z-scored and quantized to the int8
 // wire) and the unmold (the mask crop pasted back at the original
 // resolution).  OpenMP C++ with a plain C interface, loaded with ctypes by
@@ -6,7 +6,7 @@
 // (host_library; -O3 -march=native -fopenmp -shared -fPIC).
 //
 // The functions and their arithmetic are those of the JAX package's host
-// library (cfun_tpu/native.py), heart serving only:
+// library (cfun_tpu/native.py), those of heart serving:
 //
 //   mold_resize_f32: [H,W,D] raw volume -> [Dt,Ht,Wt] molded volume
 //     (trilinear, half-pixel convention == skimage order=1 w/o AA),
@@ -21,6 +21,16 @@
 //     trilinearly at every output voxel and taking the channel argmax
 //     in-register.
 //   unmold_labels_box_i16: nearest paste of an int8 label crop into a box.
+//
+// and of LiTS serving:
+//
+//   lits_mold_f32: [H,W,D] raw volume -> [Dt,Ht,Wt] molded volume in
+//     [0, 1]: the inverted HU window, a virtual centre-pad and a nearest
+//     resize in one pass.
+//   lits_mold_slab_q8: z rows of the same, quantized to the int8 wire
+//     with a fixed affine (no stats pass), one slab at a time.
+//   unmold_nearest_i16: the molded int8 label volume mapped back to the
+//     raw [H0,W0,D0] geometry through per-axis nearest index maps.
 
 #include <algorithm>
 #include <cmath>
@@ -119,6 +129,20 @@ void resize_tiled(const float* src, int h0, int w0, int d0, int dt, int ht,
   if (out_sum != nullptr) {
     *out_sum = sum;
     *out_sumsq = sumsq;
+  }
+}
+
+// Per-axis nearest map from output index through *virtually padded* space
+// to a raw-source index (-1 where the padded voxel lies outside the
+// source).  Same convention as data/resample.py::_axis_indices(order=0).
+inline void nearest_pad_axis(int n_out, int n_pad, int n_src, int off,
+                             int* idx) {
+  const double scale = static_cast<double>(n_pad) / n_out;
+  for (int i = 0; i < n_out; ++i) {
+    double s = (static_cast<double>(i) + 0.5) * scale - 0.5;
+    s = std::min(std::max(s, 0.0), static_cast<double>(n_pad - 1));
+    const int p = static_cast<int>(std::floor(s + 0.5)) - off;
+    idx[i] = (p >= 0 && p < n_src) ? p : -1;
   }
 }
 
@@ -358,6 +382,238 @@ void unmold_labels_box_i16(const int8_t* lab, int md, int mh, int mw,
         for (int r = 0; r < nruns; ++r) {
           const int16_t v = static_cast<int16_t>(src[rsrc[r]]);
           std::fill_n(orow + rstart[r], rcount[r], v);
+        }
+      }
+    }
+  }
+}
+
+// Fused LiTS molding (LiTS_2017/model.py:1154-1233 + HU window
+// 1875-1886): inverted HU window + virtual center-pad + nearest resize,
+// emitting device [D, H, W] layout directly.  Neither the pad buffer
+// (PAD_IMAGE_SHAPE [646, 646, 536] f32, 0.9 GB) nor a full-volume window
+// pass is ever materialized.  Pad voxels are exactly 0, matching the
+// reference's zero-pad of the windowed volume.
+void lits_mold_f32(const float* src, int h0, int w0, int d0, int ph, int pw,
+                   int pd, int oh, int ow, int od, float* dst, int dt,
+                   int ht, int wt, float mn, float mx) {
+  // same staged-column structure as lits_mold_slab_q8: window each source
+  // column once over its contiguous span (autovectorized), then the
+  // nearest z map is L1 gathers
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, pd, d0, od, zi.data());
+  nearest_pad_axis(ht, ph, h0, oh, yi.data());
+  nearest_pad_axis(wt, pw, w0, ow, xi.data());
+  const float inv = 1.0f / (mx - mn);
+  const int64_t hs = static_cast<int64_t>(w0) * d0;
+  int zmin = d0, zmax = -1;
+  for (int z = 0; z < dt; ++z)
+    if (zi[z] >= 0) {
+      zmin = std::min(zmin, zi[z]);
+      zmax = std::max(zmax, zi[z]);
+    }
+  const int span = zmax >= zmin ? zmax - zmin + 1 : 0;
+  std::vector<int> zrel(dt);
+  for (int z = 0; z < dt; ++z)
+    zrel[z] = zi[z] >= 0 ? zi[z] - zmin + 1 : 0;
+  constexpr int XB = 128;
+
+#pragma omp parallel
+  {
+    std::vector<float> tile(static_cast<size_t>(dt) * XB);
+    std::vector<float> buf(static_cast<size_t>(span) + 1);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      const int sy = yi[y];
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xo = 0; xo < xn; ++xo) {
+          const int sx = xi[xb + xo];
+          float* col = tile.data() + xo;
+          if (sy < 0 || sx < 0) {
+            for (int z = 0; z < dt; ++z)
+              col[static_cast<size_t>(z) * XB] = 0.0f;
+            continue;
+          }
+          const float* c =
+              src + sy * hs + static_cast<int64_t>(sx) * d0 + zmin;
+          buf[0] = 0.0f;
+          float* b = buf.data() + 1;
+          for (int s = 0; s < span; ++s) {  // contiguous: autovectorizes
+            const float t = (c[s] - mn) * inv;
+            b[s] = std::min(std::max(t, 0.0f), 1.0f);
+          }
+          for (int z = 0; z < dt; ++z)
+            col[static_cast<size_t>(z) * XB] = buf[zrel[z]];
+        }
+        for (int z = 0; z < dt; ++z)
+          std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt + xb,
+                      tile.data() + static_cast<size_t>(z) * XB,
+                      static_cast<size_t>(xn) * sizeof(float));
+      }
+    }
+  }
+}
+
+// Slab variant of lits_mold_f32 emitting the int8 inference wire
+// directly: the [0, 1] HU-windowed values quantize with a FIXED affine
+// (x scale, e.g. 127), so no stats pass is needed and z-slabs can stream
+// to the device while later slabs resize (same overlap trick as
+// mold_resize_slab_q8).  dst is the slab buffer [z_count, ht, wt].
+//
+// Inner structure: instead of gather + window math per output voxel,
+// each source z-column is windowed + quantized once over its contiguous
+// used span -- a loop g++ autovectorizes -- and the nearest z map then
+// reduces to byte gathers from the L1-resident staged column.
+void lits_mold_slab_q8(const float* src, int h0, int w0, int d0, int ph,
+                       int pw, int pd, int oh, int ow, int od, int8_t* dst,
+                       int dt, int ht, int wt, int z_start, int z_count,
+                       float mn, float mx, float scale) {
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, pd, d0, od, zi.data());
+  nearest_pad_axis(ht, ph, h0, oh, yi.data());
+  nearest_pad_axis(wt, pw, w0, ow, xi.data());
+  const float inv = 1.0f / (mx - mn);
+  const int64_t hs = static_cast<int64_t>(w0) * d0;
+  const int z_end = std::min(z_start + z_count, dt);
+  const int zc = z_end - z_start;
+
+  // source-z span this slab actually reads; zrel maps output z -> staged
+  // index + 1, with 0 the padding slot (buf[0] == 0)
+  int zmin = d0, zmax = -1;
+  for (int z = z_start; z < z_end; ++z)
+    if (zi[z] >= 0) {
+      zmin = std::min(zmin, zi[z]);
+      zmax = std::max(zmax, zi[z]);
+    }
+  const int span = zmax >= zmin ? zmax - zmin + 1 : 0;
+  std::vector<int> zrel(zc);
+  for (int z = 0; z < zc; ++z) {
+    const int sz = zi[z + z_start];
+    zrel[z] = sz >= 0 ? sz - zmin + 1 : 0;
+  }
+  constexpr int XB = 128;
+
+#pragma omp parallel
+  {
+    std::vector<int8_t> tile(static_cast<size_t>(zc) * XB);
+    std::vector<int8_t> buf(static_cast<size_t>(span) + 1);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      const int sy = yi[y];
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xo = 0; xo < xn; ++xo) {
+          const int sx = xi[xb + xo];
+          int8_t* col = tile.data() + xo;
+          if (sy < 0 || sx < 0) {
+            for (int z = 0; z < zc; ++z)
+              col[static_cast<size_t>(z) * XB] = 0;
+            continue;
+          }
+          const float* c =
+              src + sy * hs + static_cast<int64_t>(sx) * d0 + zmin;
+          buf[0] = 0;
+          int8_t* b = buf.data() + 1;
+          for (int s = 0; s < span; ++s) {  // contiguous: autovectorizes
+            float v = (c[s] - mn) * inv;
+            v = std::min(std::max(v, 0.0f), 1.0f) * scale;
+            b[s] = static_cast<int8_t>(v);  // trunc, matching numpy astype
+          }
+          for (int z = 0; z < zc; ++z)
+            col[static_cast<size_t>(z) * XB] = buf[zrel[z]];
+        }
+        for (int z = 0; z < zc; ++z)
+          std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt + xb,
+                      tile.data() + static_cast<size_t>(z) * XB,
+                      static_cast<size_t>(xn) * sizeof(int8_t));
+      }
+    }
+  }
+}
+
+// Inverse of the (virtual-pad) nearest molding for a molded int8 label
+// volume: out[y, x, z] = lab[mz[z], my[y], mx[x]] emitted as int16 in the
+// final [H0, W0, D0] host layout, in one pass (numpy's successive
+// axis-takes + astype + transpose walk the volume several times).
+// Upsampled index maps repeat
+// consecutive source indices, so the kernel exploits runs instead of
+// gathering per voxel: the z axis is written as ~Dm run fills per fresh
+// (y, x), a duplicate x column is one memcpy of the previous column and a
+// duplicate y row one memcpy of the previous row.
+//
+// Every map entry must index the molded volume (mz in [0, dm), my in
+// [0, hm), mx in [0, wm)): a map that does not is refused here, before
+// anything is read or written (native.py::unmold_nearest_labels also
+// checks before the call).
+void unmold_nearest_i16(const int8_t* lab, int dm, int hm, int wm,
+                        const int32_t* mz, const int32_t* my,
+                        const int32_t* mx, int16_t* out, int h0, int w0,
+                        int d0) {
+  for (int z = 0; z < d0; ++z)
+    if (mz[z] < 0 || mz[z] >= dm) return;
+  for (int y = 0; y < h0; ++y)
+    if (my[y] < 0 || my[y] >= hm) return;
+  for (int x = 0; x < w0; ++x)
+    if (mx[x] < 0 || mx[x] >= wm) return;
+  // z runs: mz constant on [start, start+count); degenerates to d0
+  // length-1 runs (== the old per-voxel cost) when mz never repeats
+  std::vector<int32_t> rstart, rcount, rsrc;
+  for (int z = 0; z < d0;) {
+    int z2 = z + 1;
+    while (z2 < d0 && mz[z2] == mz[z]) ++z2;
+    rstart.push_back(z);
+    rcount.push_back(z2 - z);
+    rsrc.push_back(mz[z]);
+    z = z2;
+  }
+  const int nruns = static_cast<int>(rstart.size());
+#pragma omp parallel
+  {
+#if defined(_OPENMP)
+    const int tid = omp_get_thread_num();
+    const int nt = omp_get_num_threads();
+#else
+    const int tid = 0;
+    const int nt = 1;
+#endif
+    // contiguous per-thread y ranges: the duplicate-row memcpy only ever
+    // reads a row this same thread already wrote
+    const int ylo = static_cast<int>(static_cast<int64_t>(h0) * tid / nt);
+    const int yhi = static_cast<int>(static_cast<int64_t>(h0) * (tid + 1)
+                                     / nt);
+    std::vector<int8_t> plane(static_cast<size_t>(dm) * wm);
+    int prev_sy = -1;
+    for (int y = ylo; y < yhi; ++y) {
+      const int sy = my[y];
+      int16_t* orow = out + static_cast<int64_t>(y) * w0 * d0;
+      if (sy == prev_sy) {
+        std::memcpy(orow, orow - static_cast<int64_t>(w0) * d0,
+                    static_cast<size_t>(w0) * d0 * sizeof(int16_t));
+        continue;
+      }
+      prev_sy = sy;
+      for (int z = 0; z < dm; ++z)
+        std::memcpy(plane.data() + static_cast<size_t>(z) * wm,
+                    lab + (static_cast<int64_t>(z) * hm + sy) * wm,
+                    static_cast<size_t>(wm));
+      int prev_sx = -1;
+      for (int x = 0; x < w0; ++x) {
+        const int sx = mx[x];
+        int16_t* o = orow + static_cast<int64_t>(x) * d0;
+        if (sx == prev_sx) {
+          std::memcpy(o, o - d0, static_cast<size_t>(d0) * sizeof(int16_t));
+          continue;
+        }
+        prev_sx = sx;
+        for (int r = 0; r < nruns; ++r) {
+          const int16_t v = static_cast<int16_t>(
+              plane[static_cast<size_t>(rsrc[r]) * wm + sx]);
+          std::fill_n(o + rstart[r], rcount[r], v);
         }
       }
     }

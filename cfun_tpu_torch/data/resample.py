@@ -1,5 +1,7 @@
 """Host-side separable volume resampling (NumPy; a copy of the parts of
-``cfun_tpu/data/resample.py`` the port's detector uses).
+``cfun_tpu/data/resample.py`` the port's detector uses: the heart's
+trilinear resize, the LiTS virtual-pad nearest mold and the overlap-tile
+unmold of the exact path).
 
 Axis-separable linear / nearest interpolation with the half-pixel
 convention ``src = (i + 0.5) * L_in / L_out - 0.5`` and no anti-aliasing,
@@ -56,6 +58,90 @@ def resize(vol: np.ndarray, out_shape: Tuple[int, ...],
     for axis in axes:
         out = _resize_axis(out, out_shape[axis], axis, order)
     return out
+
+
+def pad_resize_nearest(vol_hwd: np.ndarray, pad_shape_hwd: Tuple[int, int, int],
+                       out_shape_hwd: Tuple[int, int, int],
+                       offsets_hwd: Tuple[int, int, int]) -> np.ndarray:
+    """Nearest-resize from a *virtually* center-padded volume.
+
+    Equivalent to ``resize(zero_pad(vol), out_shape, order=0)`` (the LiTS
+    molding, LiTS_2017/model.py:1154-1233) without materializing the pad
+    buffer (0.9 GB at PAD_IMAGE_SHAPE [646, 646, 536]): each output index
+    maps through pad space to a source index, out-of-source voxels become 0.
+    Nearest interpolation never mixes pad and interior values, so the
+    result is bit-identical to the pad-then-resize path.
+    """
+    h0, w0, d0 = vol_hwd.shape[:3]
+
+    def ax(n_out: int, n_pad: int, n_src: int, off: int):
+        s = np.clip((np.arange(n_out, dtype=np.float64) + 0.5) * n_pad /
+                    n_out - 0.5, 0, n_pad - 1)
+        p = np.floor(s + 0.5).astype(np.int64) - off
+        valid = (p >= 0) & (p < n_src)
+        return np.clip(p, 0, n_src - 1), valid
+
+    (ph, pw, pd), (ht, wt, dt) = pad_shape_hwd, out_shape_hwd
+    oh, ow, od = offsets_hwd
+    iy, vy = ax(ht, ph, h0, oh)
+    ix, vx = ax(wt, pw, w0, ow)
+    iz, vz = ax(dt, pd, d0, od)
+    out = vol_hwd[np.ix_(iy, ix, iz)].copy()
+    out[~vy] = 0
+    out[:, ~vx] = 0
+    out[:, :, ~vz] = 0
+    return out
+
+
+def trilinear_into_box(crop: np.ndarray, box: np.ndarray,
+                       out_shape: Tuple[int, int, int]) -> np.ndarray:
+    """Resize a [d, h, w, C] crop into integer ``box`` of a zero
+    [*out_shape, C] volume with half-pixel trilinear mapping -- the
+    reference's mask unmold (utils.py:443-460) without the GPU round-trip.
+    """
+    z1, y1, x1, z2, y2, x2 = [int(v) for v in box]
+    target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))
+    resized = resize(crop, target, order=1)
+    full = np.zeros((*out_shape, crop.shape[-1]), np.float32)
+    full[z1:z1 + target[0], y1:y1 + target[1], x1:x1 + target[2]] = resized
+    return full
+
+
+def unmold_overlap_labels(crop_probs: np.ndarray, boxes: np.ndarray,
+                          out_shape: Tuple[int, int, int]) -> np.ndarray:
+    """Overlap-tile mask unmold (LiTS variant, LiTS_2017/utils.py:383-408):
+    every detection's probability stack is resized into its box, overlapping
+    voxels are averaged by hit count, then argmax'd to labels.
+
+    crop_probs: [N, mD, mH, mW, C]; boxes: [N, 6] integer voxel coords.
+    Accumulation happens only inside the union bounding box, so the full
+    [D, H, W, C] float stack the reference allocates is avoided.
+    """
+    n = boxes.shape[0]
+    if n == 0:
+        return np.zeros(out_shape, np.int16)
+    boxes = boxes.astype(np.int64)
+    lo = np.maximum(boxes[:, :3].min(axis=0), 0)
+    hi = np.minimum(boxes[:, 3:].max(axis=0), np.asarray(out_shape))
+    usize = np.maximum(hi - lo, 1)
+    c = crop_probs.shape[-1]
+    acc = np.zeros((*usize, c), np.float32)
+    cnt = np.zeros(tuple(usize), np.float32)
+    for i in range(n):
+        z1, y1, x1, z2, y2, x2 = boxes[i]
+        target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))
+        resized = resize(crop_probs[i], target, order=1)
+        sl = (slice(z1 - lo[0], z1 - lo[0] + target[0]),
+              slice(y1 - lo[1], y1 - lo[1] + target[1]),
+              slice(x1 - lo[2], x1 - lo[2] + target[2]))
+        acc[sl] += resized
+        cnt[sl] += 1.0
+    acc /= (cnt[..., None] + 1e-6)
+    labels = np.argmax(acc.clip(0.0, 1.0), axis=-1).astype(np.int16)
+    full = np.zeros(out_shape, np.int16)
+    full[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = \
+        labels[:hi[0] - lo[0], :hi[1] - lo[1], :hi[2] - lo[2]]
+    return full
 
 
 def unmold_mask_labels(crop_probs: np.ndarray, box: np.ndarray,

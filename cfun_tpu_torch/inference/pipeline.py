@@ -1,5 +1,5 @@
 """The detector: host mold -> device graph -> host unmold (port of
-``cfun_tpu/inference/pipeline.py::Detector``, heart configurations).
+``cfun_tpu/inference/pipeline.py::Detector``, heart and LiTS).
 
 Output dict, as in the JAX package (reference model.py:1341-1389):
   rois      [N, (y1, x1, z1, y2, x2, z2)] in original voxel coords
@@ -8,10 +8,14 @@ Output dict, as in the JAX package (reference model.py:1341-1389):
   mask      [H, W, D] int16 label volume at the original resolution
 
 The host work is the port's native ops (``native.py``, C++ with OpenMP),
-as the JAX detector serves: on the packed int8 path the mold estimates the
-raw volume's statistics from a strided sample, resizes and quantizes
-z-slabs into page-locked buffers and uploads each one asynchronously while
-the next one resizes; the unmold pastes the label crop natively.
+as the JAX detector serves: on the packed int8 path the mold resizes and
+quantizes z-slabs into page-locked buffers and uploads each one
+asynchronously while the next one resizes.  Heart quantizes against the
+raw volume's statistics from a strided sample (the device re-z-scores);
+LiTS (HU window, virtual centre-pad, nearest resize) with the fixed
+affine x127 of its [0, 1] values, no stats pass.  The unmold pastes the
+label crop natively (one detection), or maps the device's overlap-paste
+label volume back to the raw geometry (LiTS, or more than one instance).
 ``native=False`` takes the NumPy mold and unmold instead (``data/mold.py``,
 ``data/resample.py``), what the JAX detector does without its library.
 """
@@ -28,9 +32,11 @@ import torch
 
 from cfun_tpu_torch import native as native_ops
 from cfun_tpu_torch.config import Config
-from cfun_tpu_torch.data.mold import (mold_volume, normalize_intensity,
+from cfun_tpu_torch.data.mold import (lits_window, mold_volume,
+                                      normalize_intensity, pad_offsets,
                                       quantize_int8)
-from cfun_tpu_torch.data.resample import resize, unmold_mask_labels
+from cfun_tpu_torch.data.resample import (resize, unmold_mask_labels,
+                                          unmold_overlap_labels)
 from cfun_tpu_torch.models import cfun
 from cfun_tpu_torch.ops.anchors import config_anchors
 from cfun_tpu_torch.weights import to_device
@@ -48,7 +54,7 @@ class _Pending(NamedTuple):
 
 
 class Detector:
-    """Single-volume heart detector over a port parameter tree
+    """Single-volume detector (heart or LiTS) over a port parameter tree
     (``weights.load_npz`` / ``weights.params_from_numpy``).
 
     ``device`` defaults to CUDA; pass ``device="cpu"`` to run the plain
@@ -59,7 +65,9 @@ class Detector:
     All device work of a request is enqueued on the calling thread's
     current stream.  Page-locked slab buffers are reused from one request
     to the next: before a slab is molded into its buffer, the event
-    recorded after that buffer's last upload is waited on.  Each request's
+    recorded after that buffer's last upload is waited on.  A window other
+    than the full one (LiTS: the raw volume's place in the pad) goes up
+    the same way, from a page-locked buffer of its own.  Each request's
     output is copied into a page-locked buffer of its own (PyTorch's
     caching host allocator hands it out again only after that copy has
     run), followed by an event that ``_finish`` waits on.
@@ -71,27 +79,38 @@ class Detector:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector: no CUDA device (pass device='cpu' "
                                "to run on the CPU)")
-        if cfun.uses_overlap_paste(cfg) or cfg.pad_shape is not None:
-            raise NotImplementedError(
-                "the port serves single-instance heart configs; LiTS and "
-                "the multi-instance overlap unmold are later slices")
         self.cfg = cfg
         self.native = native
         self.params = to_device(params, self.device)
         self.anchors = torch.from_numpy(config_anchors(cfg)).to(self.device)
         # every heart request's window, on the device once
         self._window = torch.from_numpy(self._full_window()).to(self.device)
-        # fast path: one packed int8 buffer (4-bit labels) crosses to the
-        # host instead of three arrays
+        # another window's page-locked buffer and the event after its
+        # last upload
+        self._win_buf: Optional[torch.Tensor] = None
+        self._win_event: Optional[torch.cuda.Event] = None
+        # fast path: one packed int8 buffer (4- or 2-bit labels) crosses
+        # to the host instead of three arrays
         self._packed = cfg.fast_unmold and cfg.num_classes <= 16
-        self.labels_shape = (cfg.detection_max_instances,
-                             *(2 * p for p in cfg.mask_pool_size))
+        if cfun.uses_overlap_paste(cfg):
+            # the device's overlap paste ships one molded label volume
+            self.labels_shape = tuple(cfg.image_shape)
+        else:
+            self.labels_shape = (cfg.detection_max_instances,
+                                 *(2 * p for p in cfg.mask_pool_size))
+        # 2-bit labels where every label fits (LiTS' 3 classes)
         self.pack_bits = 2 if cfg.num_classes <= 4 else 4
-        # slab-pipelined native mold: int8 z-slabs quantized against
-        # sampled raw stats (the device re-z-scores), each uploaded while
-        # the next one resizes
+        # slab-pipelined native mold: int8 z-slabs, each uploaded while
+        # the next one resizes.  Heart: quantized against sampled raw
+        # stats (the device re-z-scores).  LiTS: the [0, 1] HU-windowed
+        # values with a fixed affine, no stats pass.
         self._pipelined = (native and self._packed and cfg.device_normalize
-                           and cfg.wire_image_dtype == "int8")
+                           and cfg.wire_image_dtype == "int8"
+                           and cfg.pad_shape is None)
+        self._pipelined_lits = (native and self._packed
+                                and cfg.wire_image_dtype == "int8"
+                                and cfg.pad_shape is not None
+                                and cfg.intensity_norm == "hu_window")
         self._slab_bufs: List[torch.Tensor] = []
         self._slab_events: List[torch.cuda.Event] = []
         self._dispatch_thread: Optional[ThreadPoolExecutor] = None
@@ -109,7 +128,7 @@ class Detector:
 
     def _num_slabs(self) -> int:
         return max(1, min(self.cfg.wire_slabs, self.cfg.image_shape[0])) \
-            if self._pipelined else 1
+            if (self._pipelined or self._pipelined_lits) else 1
 
     def _slab_ranges(self):
         """[(z_start, z_count)] partition of the molded depth: the one
@@ -135,6 +154,31 @@ class Detector:
         self._slab_events[i].synchronize()  # returns at once if unrecorded
         return self._slab_bufs[i]
 
+    def _window_buffer(self) -> torch.Tensor:
+        """Page-locked host buffer of a request's window, free to
+        overwrite: the upload that last read it has run."""
+        if self._win_buf is None:
+            self._win_buf = torch.empty(6, dtype=torch.float32,
+                                        pin_memory=True)
+            self._win_event = torch.cuda.Event(blocking=True)
+        self._win_event.synchronize()  # returns at once if unrecorded
+        return self._win_buf
+
+    def _device_window(self, window: np.ndarray) -> torch.Tensor:
+        """The window on the device: the full one uploaded once, another
+        one copied from its page-locked buffer without waiting for the
+        device (the copy is enqueued on the current stream)."""
+        if np.array_equal(window, self._full_window()):
+            return self._window
+        if self.device.type == "cpu":
+            return torch.tensor(np.asarray(window, np.float32))
+        buf = self._window_buffer()
+        buf.numpy()[:] = window
+        win = torch.empty(6, dtype=torch.float32, device=self.device)
+        win.copy_(buf, non_blocking=True)
+        self._win_event.record(torch.cuda.current_stream(self.device))
+        return win
+
     def warmup(self):
         """Build and set up what the first request would: the host
         library, the page-locked slab buffers, the CUDA kernels and cuDNN's
@@ -142,9 +186,12 @@ class Detector:
         thread that ``detect_stream`` enqueues from)."""
         if self.native:
             native_ops.num_threads()
-        if self._pipelined and self.device.type == "cuda":
-            for i in range(len(self._slab_ranges())):
-                self._slab_buffer(i)
+        if self.device.type == "cuda":
+            if self._pipelined or self._pipelined_lits:
+                for i in range(len(self._slab_ranges())):
+                    self._slab_buffer(i)
+            if self.cfg.pad_shape is not None:
+                self._window_buffer()
         wire = torch.zeros((1, 1, *self.cfg.image_shape),
                            dtype=self._wire_dtype(), device=self.device)
         window = self._full_window()
@@ -193,44 +240,69 @@ class Detector:
         cfg = self.cfg
         if image_hwd.ndim == 4:
             image_hwd = image_hwd[..., 0]
-        window = self._full_window()
-        if self._pipelined:
+        window = (self._full_window() if cfg.pad_shape is None
+                  else lits_window(image_hwd.shape, cfg))
+        if self._pipelined or self._pipelined_lits:
             wire = self._mold_slabs(image_hwd)
         else:
-            if not self.native:
-                molded, window = mold_volume(image_hwd, cfg)
-                molded = normalize_intensity(molded)
-                if cfg.wire_image_dtype == "int8":
-                    host = torch.from_numpy(
-                        quantize_int8(molded, cfg.wire_int8_scale))
-                else:
-                    host = torch.from_numpy(np.ascontiguousarray(molded))
-            elif cfg.wire_image_dtype == "int8":
-                host = torch.from_numpy(native_ops.mold_resize_q8(
+            if (self.native and cfg.pad_shape is None
+                    and cfg.wire_image_dtype == "int8"):
+                # one native pass: resize, z-score, int8
+                host = native_ops.mold_resize_q8(
                     image_hwd, cfg.image_shape, CLIP_SIGMA,
-                    cfg.wire_int8_scale))
+                    cfg.wire_int8_scale)
             else:
-                host = torch.from_numpy(native_ops.mold_resize(
-                    image_hwd, cfg.image_shape, normalize=True))
-            wire = host.to(self._wire_dtype()).to(self.device)[None, None]
+                if cfg.pad_shape is None:
+                    molded = (native_ops.mold_resize(
+                        image_hwd, cfg.image_shape, normalize=True)
+                        if self.native else normalize_intensity(
+                            mold_volume(image_hwd, cfg)[0], cfg))
+                elif self.native and cfg.intensity_norm == "hu_window":
+                    # LiTS: HU window + virtual pad + nearest, in [0, 1]
+                    pd, ph, pw = cfg.pad_shape
+                    molded = native_ops.lits_mold(
+                        image_hwd, (ph, pw, pd), cfg.image_shape,
+                        pad_offsets(image_hwd.shape, cfg.pad_shape),
+                        cfg.hu_window)
+                else:
+                    molded = mold_volume(image_hwd, cfg)[0]
+                host = (quantize_int8(molded, cfg.wire_int8_scale)
+                        if cfg.wire_image_dtype == "int8"
+                        else np.ascontiguousarray(molded))
+            wire = torch.from_numpy(host).to(self._wire_dtype()).to(
+                self.device)[None, None]
         return wire, window, image_hwd.shape[:3]
 
     def _mold_slabs(self, image_hwd: np.ndarray) -> torch.Tensor:
-        """The pipelined mold: stats from a strided sample, then each
-        z-slab resized and quantized natively and, on CUDA, uploaded from
-        its page-locked buffer into its z-range of one device tensor."""
+        """The pipelined mold: each z-slab molded and quantized natively
+        and, on CUDA, uploaded from its page-locked buffer into its
+        z-range of one device tensor.  Heart slabs are quantized against
+        stats from a strided sample of the raw volume, LiTS slabs with the
+        fixed affine."""
         cfg = self.cfg
         src = np.ascontiguousarray(image_hwd, np.float32)
-        mean, std = native_ops.volume_stats(src, STATS_STRIDE)
+        if self._pipelined_lits:
+            pd, ph, pw = cfg.pad_shape
+            offsets = pad_offsets(src.shape, cfg.pad_shape)
+
+            def mold_slab(z, zc, out):
+                native_ops.lits_mold_slab_q8(
+                    src, (ph, pw, pd), cfg.image_shape, offsets, z, zc,
+                    cfg.hu_window, cfg.wire_int8_scale, out=out)
+        else:
+            mean, std = native_ops.volume_stats(src, STATS_STRIDE)
+
+            def mold_slab(z, zc, out):
+                native_ops.mold_slab_q8(src, cfg.image_shape, z, zc, mean,
+                                        std, CLIP_SIGMA, cfg.wire_int8_scale,
+                                        out=out)
         wire = torch.empty((1, 1, *cfg.image_shape), dtype=torch.int8,
                            device=self.device)
         on_cpu = self.device.type == "cpu"
         stream = None if on_cpu else torch.cuda.current_stream(self.device)
         for i, (z, zc) in enumerate(self._slab_ranges()):
             buf = wire[0, 0, z:z + zc] if on_cpu else self._slab_buffer(i)
-            native_ops.mold_slab_q8(src, cfg.image_shape, z, zc, mean, std,
-                                    CLIP_SIGMA, cfg.wire_int8_scale,
-                                    out=buf.numpy())
+            mold_slab(z, zc, buf.numpy())
             if not on_cpu:
                 wire[0, 0, z:z + zc].copy_(buf, non_blocking=True)
                 self._slab_events[i].record(stream)
@@ -240,12 +312,8 @@ class Detector:
     def infer(self, wire: torch.Tensor, window: np.ndarray,
               nms: cfun.NmsFn = cfun.sorted_nms):
         """The device graph on a molded wire tensor: the packed int8 buffer
-        on the fast path, else the :class:`cfun.InferOut`.  Another
-        window than the full one is uploaded on each call, a copy from
-        pageable memory that waits for the device."""
-        win = (self._window if np.array_equal(window, self._full_window())
-               else torch.as_tensor(window, dtype=torch.float32,
-                                    device=self.device))
+        on the fast path, else the :class:`cfun.InferOut`."""
+        win = self._device_window(window)
         out = cfun.infer_forward(self.params, wire, self.anchors, win,
                                  self.cfg, nms=nms)
         if self._packed:
@@ -345,14 +413,50 @@ class Detector:
             while pending:
                 yield pending.popleft().result()
 
+    def _molded_labels_to_original(self, labels_molded: np.ndarray,
+                                   orig_shape_hwd) -> np.ndarray:
+        """Invert the (virtual-pad) nearest mold of a [D, H, W] int8
+        molded label volume: each raw voxel -> its pad coordinate -> the
+        nearest molded index (float64 maps, as the JAX detector computes
+        them).  Returns int16 [H0, W0, D0], the host layout."""
+        cfg = self.cfg
+        h0, w0, d0 = orig_shape_hwd[0], orig_shape_hwd[1], orig_shape_hwd[2]
+        dt, ht, wt = cfg.image_shape
+        if cfg.pad_shape is not None:
+            pd, ph, pw = cfg.pad_shape
+            oh, ow, od = pad_offsets(orig_shape_hwd, cfg.pad_shape)
+        else:
+            pd, ph, pw = d0, h0, w0
+            oh = ow = od = 0
+
+        def inv(n_src, n_pad, n_out, off):
+            s = np.clip((np.arange(n_src) + off + 0.5) * n_out / n_pad - 0.5,
+                        0, n_out - 1)
+            return np.floor(s + 0.5).astype(np.int64)
+
+        mz = inv(d0, pd, dt, od)
+        my = inv(h0, ph, ht, oh)
+        mx = inv(w0, pw, wt, ow)
+        if self.native:
+            return native_ops.unmold_nearest_labels(labels_molded, mz, my,
+                                                    mx)
+        out = np.take(labels_molded, mz, axis=0)
+        out = np.take(out, my, axis=1)
+        out = np.take(out, mx, axis=2)
+        return np.ascontiguousarray(out.transpose(1, 2, 0)).astype(np.int16)
+
     def unmold(self, detections: np.ndarray, kept: np.ndarray,
                mask_data: np.ndarray, orig_shape_hwd,
                window: np.ndarray) -> Dict[str, np.ndarray]:
         """Reference unmold (model.py:1812-1864): scale boxes from the
         molded window back to original voxels, drop zero-volume boxes,
-        paste the first detection's mask into its box.  ``mask_data`` is
-        [N, 2m...] int8 labels (fast path) or the [N, m..., C] probability
-        stack (exact path), told apart by rank."""
+        then the labels.  ``mask_data`` is told apart by rank: the [D, H,
+        W] int8 molded label volume of the overlap paste (mapped back to
+        the raw geometry), [N, 2m...] int8 labels (fast path: the first
+        detection's crop pasted into its box) or the [N, m..., C]
+        probability stack (exact path: LiTS averages every detection's
+        stack over their overlaps, LiTS_2017/utils.py:383-408; heart
+        pastes the first)."""
         cfg = self.cfg
         h0, w0, d0 = orig_shape_hwd[0], orig_shape_hwd[1], orig_shape_hwd[2]
         n = int(kept.sum())
@@ -371,13 +475,28 @@ class Detector:
                   * (boxes[:, 5] - boxes[:, 2]))
         good = volume > 0
         boxes, scores = boxes[good], scores[good]
-        masks = mask_data[:n][good]
 
+        if mask_data.ndim == 3:  # the overlap paste's molded labels
+            tp = time.perf_counter()
+            full_hwd = self._molded_labels_to_original(mask_data,
+                                                       orig_shape_hwd)
+            self.last_sub_timings["paste"] = time.perf_counter() - tp
+            boxes = np.clip(boxes, 0, np.array([d0, h0, w0, d0, h0, w0]))
+            return {
+                "rois": boxes[:, [1, 2, 0, 4, 5, 3]],
+                "class_ids": np.arange(1, cfg.num_classes),
+                "scores": scores,
+                "mask": full_hwd,
+            }
+
+        masks = mask_data[:n][good]
         tp = time.perf_counter()
         if boxes.shape[0] > 0:
             boxes = np.clip(boxes, 0, np.array([d0, h0, w0, d0, h0, w0]))
             if masks.ndim == 4:  # [N, d, h, w] int8 labels
                 full = self._paste_labels(masks[0], boxes[0], (d0, h0, w0))
+            elif cfg.name == "lits":
+                full = unmold_overlap_labels(masks, boxes, (d0, h0, w0))
             elif self.native:
                 full = native_ops.unmold_argmax(masks[0], boxes[0],
                                                 (d0, h0, w0))

@@ -4,7 +4,9 @@ trunk -> propose (top-k + NMS) -> pyramid RoIAlign -> classifier ->
 refine_detections (NMS again) -> RoIAlign crop of the raw image -> U-Net
 mask head (dense, or fused with ``Config.pallas_unet``) -> on-device 2x
 trilinear upsample (none at 'finetune', whose mask is already 2x) +
-argmax -> one packed int8 buffer.  Every dynamic shape is fixed-capacity
+argmax, or the overlap-tile paste of every detection into the molded
+volume (LiTS, and any config with more than one instance) -> one packed
+int8 buffer.  Every dynamic shape is fixed-capacity
 with a validity mask, as in the JAX graph.
 
 Both NMS sites take an ``nms`` callable with the contract of
@@ -154,11 +156,93 @@ def refine_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
 
 
 def uses_overlap_paste(cfg: Config) -> bool:
-    """The multi-instance / LiTS fast unmold (the device overlap-tile
-    paste of ``cfun_tpu/models/cfun.py``), which the port does not have
-    yet."""
+    """Fast-path unmold variant: the device overlap-tile paste emits one
+    molded label volume.  Always for LiTS (the reference's overlap
+    averaging, LiTS_2017/utils.py:383-408); for other configs whenever
+    more than one instance can be detected (the multi-instance heart
+    adopts the LiTS averaging, as in the JAX package)."""
     return cfg.fast_unmold and (cfg.name == "lits"
                                 or cfg.detection_max_instances > 1)
+
+
+def _paste_weights(lo: torch.Tensor, hi: torch.Tensor, m: int, n: int,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One axis of the overlap paste for K boxes [lo, hi) along an axis of
+    ``n`` voxels, from a mask of ``m`` voxels: (the [K, n, m] trilinear
+    weights of ``jax.image.scale_and_translate`` (half-pixel, antialias
+    off), zero outside the box; the [K, n] inside-the-box mask).
+
+    The source coordinate ``(i + 0.5) / s - lo / s - 0.5`` with ``s =
+    max(hi - lo, 1) / m`` is clamped to [0, m - 1]: the two taps that
+    remain equal ``scale_and_translate``'s renormalised edge weights.  A
+    sample beyond half a voxel outside the mask weighs 0, as there."""
+    i = torch.arange(n, dtype=torch.float32, device=lo.device)[None]
+    lo, hi = lo[:, None], hi[:, None]
+    inv = 1.0 / (torch.clamp(hi - lo, min=1.0) / m)
+    src = (i + 0.5) * inv - lo * inv - 0.5
+    inside = ((i >= lo) & (i < hi)).float()
+    keep = inside * ((src >= -0.5) & (src <= m - 0.5)).float()
+    src = torch.clamp(src, 0.0, m - 1.0)
+    i0 = torch.floor(src)
+    frac = src - i0
+    i0 = i0.long()
+    i1 = torch.clamp(i0 + 1, max=m - 1)
+    w = torch.zeros((*src.shape, m), dtype=torch.float32, device=lo.device)
+    w.scatter_add_(2, i0[..., None], ((1.0 - frac) * keep)[..., None])
+    w.scatter_add_(2, i1[..., None], (frac * keep)[..., None])
+    return w, inside
+
+
+def overlap_paste_probs(mask_probs: torch.Tensor, detections: torch.Tensor,
+                        valid: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """The device overlap-tile paste's averaged probabilities (port of the
+    body of ``cfun_tpu/models/cfun.py::overlap_paste_labels``,
+    LiTS_2017/utils.py:383-408): every valid detection's probability
+    stack is resized trilinearly into its box of the molded volume, and
+    each voxel's sum is divided by its hit count (+1e-6), then clipped to
+    [0, 1].  Voxels outside every box are 0.
+
+    mask_probs: [K, C, md, mh, mw] (any float dtype, pasted in f32);
+    detections: [K, 8] molded voxel boxes; valid: [K] bool.  Returns
+    [C, D, H, W] float32.
+
+    Fixed shapes and no host sync: the boxes stay on the device, where
+    each axis's interpolation is a [K, n, m] weight matrix, zero outside
+    the box (``_paste_weights``).  The K slots are taken in turn, as the
+    JAX ``fori_loop`` takes them, each resampled separably (x, then y, then
+    z as a batched matrix product added into the one [C, D, H, W]
+    accumulator), so the memory is one accumulator, not K volumes.
+    Invalid slots add zero."""
+    d, h, w = cfg.image_shape
+    k, c, md, mh, mw = mask_probs.shape
+    boxes = detections[:, :6].float()
+    v = valid.float()
+    wz, in_z = _paste_weights(boxes[:, 0], boxes[:, 3], md, d)
+    wy, in_y = _paste_weights(boxes[:, 1], boxes[:, 4], mh, h)
+    wx, in_x = _paste_weights(boxes[:, 2], boxes[:, 5], mw, w)
+    wz = wz * v[:, None, None]
+    acc = torch.zeros((c, d, h * w), dtype=torch.float32,
+                      device=mask_probs.device)
+    for i in range(k):
+        p = mask_probs[i].float().reshape(c * md * mh, mw)
+        x = torch.matmul(p, wx[i].t()).view(c, md, mh, w)
+        y = torch.matmul(wy[i], x).view(c, md, h * w)
+        acc.baddbmm_(wz[i].expand(c, d, md), y)
+    # hits: the boxes' inside masks are separable, their sum over slots
+    # one [D, K] x [K, H*W] product (small integers, exact in f32)
+    cnt = torch.matmul((in_z * v[:, None]).t(),
+                       (in_y[:, :, None] * in_x[:, None, :]).view(k, h * w))
+    acc.div_(cnt.add_(1e-6))
+    return acc.clamp_(0.0, 1.0).view(c, d, h, w)
+
+
+def overlap_paste_labels(mask_probs: torch.Tensor, detections: torch.Tensor,
+                         valid: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """The overlap paste's labels: [D, H, W] int8, the argmax over C of
+    :func:`overlap_paste_probs` (the first class on ties; 0 outside every
+    box).  The host maps them back to the raw geometry."""
+    return torch.argmax(overlap_paste_probs(mask_probs, detections, valid,
+                                            cfg), dim=0).to(torch.int8)
 
 
 class InferOut(NamedTuple):
@@ -166,7 +250,10 @@ class InferOut(NamedTuple):
     det_valid: torch.Tensor   # [Dmax] bool
     # exact path: [Dmax, mD, mH, mW, C] float16 softmax; fast path: None
     mask_probs: Optional[torch.Tensor]
-    # fast path: [Dmax, 2mD, 2mH, 2mW] int8 argmax labels; exact: None
+    # fast path: int8 argmax labels, either [Dmax, 2mD, 2mH, 2mW] (one
+    # detection's crop, upsampled 2x on the device but at 'finetune') or,
+    # where ``uses_overlap_paste`` (LiTS, more than one instance), the
+    # [D, H, W] molded label volume of the overlap paste.  Exact: None
     mask_labels: Optional[torch.Tensor]
 
 
@@ -178,10 +265,6 @@ def infer_forward(params: nn.Params, image: torch.Tensor,
     image: [1, 1, D, H, W] (int8 on the int8 wire); anchors: [A, 6];
     window: [6] voxel coords of the valid region.
     """
-    if uses_overlap_paste(cfg):
-        raise NotImplementedError(
-            "the device overlap-tile unmold (LiTS, or fast_unmold with "
-            "detection_max_instances > 1) is not ported yet")
     dt = compute_dtype(cfg)
     if cfg.wire_image_dtype == "int8":
         image = image.to(dt) * (1.0 / cfg.wire_int8_scale)
@@ -211,6 +294,11 @@ def infer_forward(params: nn.Params, image: torch.Tensor,
     mask_logits = apply_mask_head(params["mask"], crops, stage=cfg.stage,
                                   dtype=dt, fused=cfg.pallas_unet)
     mask_probs = torch.softmax(mask_logits, dim=1)
+    if uses_overlap_paste(cfg):
+        # the multi-instance overlap-tile paste, on the device, in molded
+        # coordinates: one [D, H, W] label volume leaves it
+        labels = overlap_paste_labels(mask_probs, detections, kept, cfg)
+        return InferOut(detections, kept, None, labels)
     if cfg.fast_unmold:
         # 2x trilinear upsample (half-pixel, edge-clamped: the map of
         # jax.image.resize) + argmax on the device, so only int8 labels

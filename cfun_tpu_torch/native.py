@@ -1,5 +1,5 @@
 """ctypes bindings of the port's host ops (``csrc/host_ops.cc``): the
-native mold and unmold of heart serving.
+native mold and unmold of heart and LiTS serving.
 
 The library is built with ``g++`` at first use (``_build.build_host``)
 and loaded with ctypes' default ``RTLD_LOCAL``, so its symbols stay its
@@ -49,6 +49,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.unmold_labels_box_i16.argtypes = [i8p, i, i, i, i32p, i32p, i32p,
                                           i16p] + [i] * 9
     lib.unmold_labels_box_i16.restype = None
+    lib.lits_mold_f32.argtypes = [f32p] + [i] * 9 + [f32p, i, i, i, f, f]
+    lib.lits_mold_f32.restype = None
+    lib.lits_mold_slab_q8.argtypes = [f32p] + [i] * 9 + [i8p] + [i] * 5 + \
+        [f] * 3
+    lib.lits_mold_slab_q8.restype = None
+    lib.unmold_nearest_i16.argtypes = [i8p, i, i, i, i32p, i32p, i32p,
+                                       i16p, i, i, i]
+    lib.unmold_nearest_i16.restype = None
     lib.cfun_native_num_threads.argtypes = []
     lib.cfun_native_num_threads.restype = ctypes.c_int
 
@@ -212,4 +220,98 @@ def unmold_argmax(crop_probs: np.ndarray, box, out_shape_dhw
     z1, y1, x1, z2, y2, x2 = (int(v) for v in box)
     library().unmold_argmax_f32(probs, md, mh, mw, c, out, od, oh, ow,
                                 z1, y1, x1, z2, y2, x2)
+    return out
+
+
+def _lits_geometry(pad_shape_hwd, out_shape_dhw, offsets_hwd):
+    """Checked (pad (ph, pw, pd), output (dt, ht, wt), offsets (oh, ow,
+    od)) of a LiTS mold: the pad must hold the offsets, which are
+    ``max(0, (pad - src) // 2)`` for the centre-pad (a source larger than
+    the pad is cropped by the nearest map, and its offset is 0)."""
+    ph, pw, pd = (int(v) for v in pad_shape_hwd)
+    oh, ow, od = (int(v) for v in offsets_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    if min(ph, pw, pd) < 1 or min(oh, ow, od) < 0 or \
+            oh >= ph or ow >= pw or od >= pd:
+        raise ValueError(f"pad {pad_shape_hwd} with offsets {offsets_hwd} "
+                         f"is not a centre-pad target")
+    return (ph, pw, pd), (dt, ht, wt), (oh, ow, od)
+
+
+def lits_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+              offsets_hwd, hu_window) -> np.ndarray:
+    """The LiTS mold in one native pass: [H, W, D] raw volume ->
+    [Dt, Ht, Wt] float32 in [0, 1]: the inverted HU window
+    ``clip((x - mn) / (mx - mn), 0, 1)``, a virtual centre-pad to
+    ``pad_shape_hwd`` at ``offsets_hwd`` (pad voxels 0) and a nearest
+    resize.  No pad buffer is made."""
+    src, h0, w0, d0 = _source(src_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    mn, mx = (float(v) for v in hu_window)
+    dst = np.empty((dt, ht, wt), np.float32)
+    library().lits_mold_f32(src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst,
+                            dt, ht, wt, mn, mx)
+    return dst
+
+
+def lits_mold_slab_q8(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+                      offsets_hwd, z_start: int, z_count: int, hu_window,
+                      scale: float, out: Optional[np.ndarray] = None
+                      ) -> np.ndarray:
+    """Output z rows [z_start, z_start + z_count) of the LiTS int8 wire:
+    the mold of :func:`lits_mold`, times ``scale``, truncated to int8 (a
+    fixed affine: no stats pass).  Written into ``out`` (int8
+    C-contiguous [z_count, Ht, Wt], e.g. a view of a page-locked buffer)
+    when given; returns it.  ``src_hwd`` must be C-contiguous float32
+    already: callers mold several slabs from one source."""
+    if src_hwd.dtype != np.float32 or not src_hwd.flags.c_contiguous:
+        raise ValueError("lits_mold_slab_q8 takes a C-contiguous float32 "
+                         "source")
+    src, h0, w0, d0 = _source(src_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    z_start, z_count = int(z_start), int(z_count)
+    if z_start < 0 or z_count < 1 or z_start + z_count > dt:
+        raise ValueError(f"slab [{z_start}, {z_start + z_count}) is not "
+                         f"inside depth {dt}")
+    if out is None:
+        out = np.empty((z_count, ht, wt), np.int8)
+    elif (out.shape != (z_count, ht, wt) or out.dtype != np.int8
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be int8 C-contiguous "
+                         f"{(z_count, ht, wt)}, got {out.dtype} {out.shape}")
+    mn, mx = (float(v) for v in hu_window)
+    library().lits_mold_slab_q8(src, h0, w0, d0, ph, pw, pd, oh, ow, od, out,
+                                dt, ht, wt, z_start, z_count, mn, mx,
+                                float(scale))
+    return out
+
+
+def unmold_nearest_labels(lab_dhw: np.ndarray, mz: np.ndarray,
+                          my: np.ndarray, mx: np.ndarray) -> np.ndarray:
+    """The molded int8 [Dm, Hm, Wm] label volume mapped back through
+    per-axis nearest index maps: ``out[y, x, z] = lab[mz[z], my[y],
+    mx[x]]`` as int16 [H0, W0, D0] (the host layout), in one pass.
+
+    Every map entry must index the molded volume: a map that steps out of
+    it would make the C code read past the buffer, so it is refused here
+    with a ValueError before the call (and the C code refuses it too)."""
+    lab = np.ascontiguousarray(lab_dhw, np.int8)
+    if lab.ndim != 3 or min(lab.shape) < 1:
+        raise ValueError(f"labels must be a non-empty [d, h, w] volume, got "
+                         f"{lab.shape}")
+    maps = [np.asarray(m) for m in (mz, my, mx)]
+    for name, m, n in zip(("mz", "my", "mx"), maps, lab.shape):
+        if m.ndim != 1 or m.size < 1:
+            raise ValueError(f"{name} must be a non-empty 1-D index map")
+        if int(m.min()) < 0 or int(m.max()) >= n:
+            raise ValueError(f"{name} indexes [{int(m.min())}, "
+                             f"{int(m.max())}], outside the molded axis of "
+                             f"{n}")
+    mz, my, mx = (np.ascontiguousarray(m, np.int32) for m in maps)
+    dm, hm, wm = lab.shape
+    out = np.empty((my.size, mx.size, mz.size), np.int16)
+    library().unmold_nearest_i16(lab, dm, hm, wm, mz, my, mx, out,
+                                 my.size, mx.size, mz.size)
     return out

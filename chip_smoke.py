@@ -1,9 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cfun_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, both model families
+    python3 chip_smoke.py heart      # the shared phases + the heart paths
+    python3 chip_smoke.py lits       # the shared phases + the LiTS paths
 
-Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
+With no argument it needs all three checkpoints (weights/heart_synth.npz,
+weights/heart_synth_ft.npz, weights/lits_synth.npz); ``heart`` needs the
+first two, ``lits`` the third.  A missing checkpoint is an error (exit 1).
+
+Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
+(shared: env build k1 k2; heart: serve serve_fused serve_ft; LiTS:
+serve_lits serve_lits_fused; then stream k2_served profile small, each on
+the families that ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -14,7 +23,9 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
   k1      holds the sorted-NMS kernel against its plain PyTorch version on
           edge cases, N from 1 to 4096 around the 64-box words (exact idx /
           keep), on two new inputs replayed through one CUDA graph of it,
-          and on two streams at once
+          and on two streams at once; then the LiTS sites' sizes (1000->50
+          and 50->10 at IoU 0.7) on seeded boxes, checked and timed beside
+          their bound
   serve   whole-heart inference at full width (192x320x320, stage
           'beginning', heart_inference_config with nms_backend='pallas'):
           weights/heart_synth.npz, three requests through Detector.detect
@@ -45,32 +56,51 @@ Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``:
           (1e-5 of the logits' largest magnitude, labels >= 99.9%), and
           the dense U-Net with the phase up-convs against the explicit
           ones (2e-4 of the logits' largest magnitude, labels >= 99.9%)
-  stream  Detector.detect_stream over four full-width volumes on the
+  serve_lits  LiTS inference at full width (256x320x320, P3D35,
+          lits_inference_config('finetune'): FPN 160, U-Net base 32 at
+          batch 10, the device overlap paste, the 2-bit wire) with
+          weights/lits_synth.npz: the three seeded held-out volumes its
+          training evaluated (400x400x280, SyntheticLiTS(n=3, seed=90)) and
+          one 512x512x400 volume, through Detector.detect (the native
+          pipelined LiTS mold from page-locked buffers, the native unmold),
+          launch counts reset before and read after; per-class Dice
+          against the drawn labels beside the JAX package's recorded
+          numbers; one native=False request; the served graph with the
+          plain NMS; K1 timed at the NMS inputs it served
+  serve_lits_fused  the same requests with pallas_unet=True: the same
+          detections, K2 8 times a request at the shapes of K2_SERVED_LITS
+          (batch 10), and the fused U-Net as close to dense f32 as dense
+          bf16 on one served crop
+  stream  Detector.detect_stream over four full-width heart volumes on the
           dense path: the same results as serial detect, in order, the
           sustained ms a volume beside the serial ms, the launch counts
           reset before and read after; then the synchronizing CUDA calls
-          one request's mold and dispatch make, counted under
-          torch.cuda.set_sync_debug_mode('warn')
-  k2_served  the fused-conv kernel at each shape serve_fused launched it
-          at, as recorded there: checked as in 'k2', and timed beside its
+          one request's mold and dispatch make (heart, and LiTS),
+          counted under torch.cuda.set_sync_debug_mode('warn')
+  k2_served  the fused-conv kernel at each shape serve_fused and
+          serve_lits_fused launched it at, as recorded there: checked as
+          in 'k2', and timed beside its
           bound, the plain version and cuDNN's bf16 conv alone, with its
           TFLOP/s, its share of the bound and its ratio to cuDNN's conv;
           each shape and the sum weighted by the launches recorded a
           request
   profile where a served request's device time goes (torch.profiler), on
-          the dense, fused and finetune paths, with every host-device
-          copy by kind (the wire's upload is Pinned -> Device), and K1's
-          device time without the host's launch cost (CUDA-graph replay;
-          K2's is taken in phase k2_served)
+          the dense, fused and finetune paths and both LiTS paths, with
+          every host-device copy by kind (the wire's upload is Pinned ->
+          Device), the LiTS overlap paste's device time and kernels, and
+          K1's device time without the host's launch cost (CUDA-graph
+          replay; K2's is taken in phase k2_served)
   small   the port on the card against the port on the CPU (plain
-          versions, float32, TF32 off) on the tiny config
+          versions, float32, TF32 off) on the tiny config, and on a tiny
+          LiTS config
 
 Each served phase (and 'stream') sets every kernel's launch count and its
 record of launch shapes to 0 just before its requests and reads them just
 after.
 
-Then one JSON line with the kernels, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
+Then a ``{"serving": ...}`` JSON line, one with the kernels, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failed check raises and the exit
 code is non-zero; without a CUDA device the script exits 2 before any
 phase.  A watchdog ends a hung run after 600 s with a traceback.
 """
@@ -186,6 +216,22 @@ K2_SERVED = {(1, ci, co, n, n, n): calls for ci, co, n, calls in (
     (20, 20, 96, 2), (40, 20, 96, 1), (40, 40, 96, 1), (40, 40, 48, 2),
     (80, 40, 48, 1), (80, 80, 48, 1), (80, 80, 24, 2), (160, 80, 24, 1),
     (160, 160, 24, 1))}
+# The K2 launches a LiTS request makes (lits_inference_config('finetune',
+# pallas_unet=True)): ten crops of (32, 80, 80), base 32, min_fused_voxels
+# 4096, so the 8x20x20 level and below stay on cuDNN.
+K2_SERVED_LITS = {(10, ci, co, *dhw): calls for ci, co, dhw, calls in (
+    (32, 32, (32, 80, 80), 2), (64, 32, (32, 80, 80), 1),
+    (64, 64, (32, 80, 80), 1), (64, 64, (16, 40, 40), 2),
+    (128, 64, (16, 40, 40), 1), (128, 128, (16, 40, 40), 1))}
+# K1 at the LiTS NMS sites: propose (1000 -> 50) and refine_detections
+# (50 -> 10), both at IoU 0.7
+LITS_K1 = ((1000, 50, 0.7), (50, 10, 0.7))
+# the JAX package's held-out per-class Dice of weights/lits_synth.npz
+# (benchmarks/lits_synth_e2e.json, stage finetune): liver, tumour
+LITS_JAX_DICE = (0.975, 0.9597)
+CHECKPOINTS = {"heart": ("weights/heart_synth.npz",
+                         "weights/heart_synth_ft.npz"),
+               "lits": ("weights/lits_synth.npz",)}
 # (B, C_in, C_out, D, H, W, pre_lrelu): D = 1, B = 2, sizes and channel
 # counts that are not multiples of the kernel's tiles and chunks; then
 # C_in of 8, 20, 24 and 25 (around the pad to 8 and the 32-channel
@@ -361,6 +407,52 @@ def synth_heart(seed, shape=(256, 256, 128)):
     return image
 
 
+def synthetic_lits(n, seed, host_shape=(400, 400, 280)):
+    """``n`` raw [H, W, D] HU volumes and their drawn [H, W, D] labels: a
+    bright (low-HU) liver ellipsoid with a tumour core over ~300 HU
+    background noise, volume ``i`` from seed ``seed + i``.  A copy of the
+    formula of benchmarks/lits_train_steps.py::SyntheticLiTS, which made
+    the data weights/lits_synth.npz was trained and evaluated on."""
+    import numpy as np
+
+    out = []
+    h, w, d = host_shape
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        labels = np.zeros((h, w, d), np.int8)
+        cy, cx, cz = (rng.integers(h // 3, 2 * h // 3),
+                      rng.integers(w // 3, 2 * w // 3), d // 2)
+        yy, xx, zz = np.ogrid[:h, :w, :d]
+        liver = (((yy - cy) / (h // 5)) ** 2 + ((xx - cx) / (w // 5)) ** 2
+                 + ((zz - cz) / (d // 4)) ** 2) < 1.0
+        tumor = (((yy - cy) / (h // 12)) ** 2
+                 + ((xx - cx) / (w // 12)) ** 2
+                 + ((zz - cz) / (d // 10)) ** 2) < 1.0
+        labels[liver] = 1
+        labels[tumor] = 2
+        vol = np.full((h, w, d), 300.0, np.float32)
+        vol += rng.normal(0, 40, size=(h, w, d)).astype(np.float32)
+        vol[liver] = -150.0
+        vol[tumor] = -280.0
+        out.append((vol, labels))
+    return out
+
+
+def per_class_dice(gt_labels, pred_labels, num_classes):
+    """Dice per foreground class (a copy of
+    cfun_tpu/utils/metrics.py::per_class_dice)."""
+    import numpy as np
+
+    dice = np.zeros(num_classes - 1, np.float64)
+    for c in range(1, num_classes):
+        gt = gt_labels == c
+        pr = pred_labels == c
+        inter = np.logical_and(gt, pr).sum(dtype=np.float64)
+        denom = gt.sum(dtype=np.float64) + pr.sum(dtype=np.float64)
+        dice[c - 1] = 2.0 * inter / (denom + 1e-6)
+    return dice
+
+
 def nms_random(n, seed, device):
     """Seeded score-sorted boxes [n, 6] and a validity mask, ~80% valid."""
     import numpy as np
@@ -461,13 +553,14 @@ def _dev_us(event) -> float:
 
 
 def profile_requests(det, vols, label):
-    """Where a served request's device time goes: three requests under
-    torch.profiler, device time summed over all kernels, and the kernels
-    with the most of it.  Returns (busy ms a request, {kernel: ms a
-    request})."""
+    """Where a served request's device time goes: the requests ``vols``
+    under torch.profiler, device time summed over all kernels, and the
+    kernels with the most of it.  Returns (busy ms a request, {kernel: ms
+    a request})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    n = len(vols)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for vol in vols:
@@ -476,18 +569,70 @@ def profile_requests(det, vols, label):
     dev = sorted(((_dev_us(e), e.key, e.count) for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  reverse=True)
-    busy = sum(d for d, _, _ in dev) / 3e3
-    n_ops = sum(c for _, _, c in dev) / 3
+    busy = sum(d for d, _, _ in dev) / (n * 1e3)
+    n_ops = sum(c for _, _, c in dev) / n
     print(f"profile {label}: device busy {busy:.3f} ms per request in "
-          f"{n_ops:g} kernels and copies", flush=True)
+          f"{n_ops:g} kernels and copies ({n} requests)", flush=True)
     for us, name, count in dev[:14]:
-        print(f"profile {label}: {us / 3e3:.3f} ms/request {count / 3:g} "
-              f"calls/request {name[:100]}", flush=True)
+        print(f"profile {label}: {us / (n * 1e3):.3f} ms/request "
+              f"{count / n:g} calls/request {name[:100]}", flush=True)
     for us, name, count in dev:
         if "memcpy" in name.lower():
-            print(f"profile {label} copy: {us / 3e3:.4f} ms/request "
-                  f"{count / 3:g} calls/request {name}", flush=True)
-    return busy, {name: us / 3e3 for us, name, _ in dev}
+            print(f"profile {label} copy: {us / (n * 1e3):.4f} ms/request "
+                  f"{count / n:g} calls/request {name}", flush=True)
+    return busy, {name: us / (n * 1e3) for us, name, _ in dev}
+
+
+def paste_profile(cfun, det, vol):
+    """The LiTS overlap paste alone, on the inputs one served request gives
+    it: its device ms (CUDA-graph replay, no host launch cost), its host
+    + device ms as called (CUDA events), and its kernels by name
+    (torch.profiler, ms a call).  Returns a dict."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    orig = cfun.overlap_paste_labels
+
+    def record(mask_probs, detections, valid, cfg):
+        seen.append((mask_probs.clone(), detections.clone(), valid.clone(),
+                     cfg))
+        return orig(mask_probs, detections, valid, cfg)
+
+    wire, window, _ = det.mold(vol)
+    cfun.overlap_paste_labels = record
+    try:
+        det.infer(wire, window)
+    finally:
+        cfun.overlap_paste_labels = orig
+    check(len(seen) == 1, "one overlap paste a request")
+    args = seen[0]
+
+    def call():
+        return orig(*args)
+
+    ms = cuda_ms(call, 20)
+    replay = graph_ms(call)
+    reps = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    kernels = sorted(((_dev_us(e) / (reps * 1e3), e.key, e.count / reps)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    print(f"profile overlap paste ({args[0].shape[0]} slots, probs "
+          f"{tuple(args[0].shape)} {args[0].dtype}, "
+          f"{int(args[2].sum())} valid): device {replay:.4f} ms (graph "
+          f"replay), {busy:.4f} ms (profiler, kernels), {ms:.4f} ms as "
+          f"called", flush=True)
+    for k_ms, name, count in kernels:
+        print(f"profile overlap paste: {k_ms:.4f} ms/call {count:g} "
+              f"calls {name[:100]}", flush=True)
+    return {"ms": ms, "device_ms": replay, "kernel_ms": busy,
+            "kernels": {name: k_ms for k_ms, name, _ in kernels}}
 
 
 def kernel_device_ms(call, names, reps=20):
@@ -507,12 +652,13 @@ def kernel_device_ms(call, names, reps=20):
     return replay, kernel_us / (reps * 1e3)
 
 
-def serve_three(det, vols, counters, label):
+def serve_requests(det, vols, counters, label):
     """One warm-up request (cuDNN set-up, not counted), then every kernel
-    launch count and launch-shape record set to 0, three requests through
-    ``Detector.detect``, and both read just after.  Checks each result's
-    shape, labels and scores.  Returns (results, {kernel: launches},
-    {kernel: {shape: launches}}, detections found)."""
+    launch count and launch-shape record set to 0, the requests ``vols``
+    through ``Detector.detect``, and both read just after.  Checks each
+    result's shape, labels and scores.  Returns (results, {kernel:
+    launches}, {kernel: {shape: launches}}, detections found, [timings],
+    peak device bytes)."""
     import numpy as np
     import torch
 
@@ -548,10 +694,12 @@ def serve_three(det, vols, counters, label):
               f"{res['rois'].tolist()} scores {res['scores'].tolist()} "
               f"labelled voxels {int((res['mask'] > 0).sum())}",
               flush=True)
-    print(f"{label}: served 3 requests, {n_found} detection(s), launches "
-          f"{launches} by shape {shapes}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B", flush=True)
-    return results, launches, shapes, n_found, [t for t, _, _ in timings]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: served {len(vols)} requests, {n_found} detection(s), "
+          f"launches {launches} by shape {shapes}; max_memory_allocated "
+          f"{peak} B", flush=True)
+    return (results, launches, shapes, n_found, [t for t, _, _ in timings],
+            peak)
 
 
 def request_line(t, sub, wire):
@@ -690,8 +838,8 @@ def sync_count(det, vol):
 
 
 def capture_crop(cfun, det, vol):
-    """The mask head's input crop [1, 1, 96, 96, 96] f32 of one request
-    (the served graph's own RoIAlign output)."""
+    """The mask head's input crops [Dmax, 1, *mask_pool_size] f32 of one
+    request (the served graph's own RoIAlign output)."""
     seen = []
     orig = cfun.apply_mask_head
 
@@ -709,6 +857,134 @@ def capture_crop(cfun, det, vol):
     return seen[0]
 
 
+def k1_time(k1, boxes, valid, thr, k, label):
+    """K1 against its plain version on one input (exact), timed beside its
+    plain version and its bound.  Returns the per-shape record."""
+    import torch
+
+    idx, keep = k1.sorted_nms(boxes, valid, thr, k)
+    ridx, rkeep = k1.sorted_nms_reference(boxes, valid, thr, k)
+    check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
+          f"k1 {label} N={boxes.shape[0]} k={k} thr={thr}")
+    err = float((idx.long() - ridx.long()).abs().max())
+    kept = int(rkeep.sum())
+    ms = cuda_ms(lambda: k1.sorted_nms(boxes, valid, thr, k), 50)
+    plain_ms = cuda_ms(
+        lambda: k1.sorted_nms_reference(boxes, valid, thr, k), 5, 1)
+    bound, by, pairs = nms_bound_ms(valid, ridx, rkeep)
+    print(f"k1 {label} N={boxes.shape[0]} k={k} thr={thr}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.3g} ms "
+          f"({by}), kept {kept}, IoU pairs needed {pairs}", flush=True)
+    return {"shape": f"{boxes.shape[0]}->{k}@{thr}", "site": label,
+            "kept": kept, "iou_pairs_needed": pairs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err}
+
+
+def k1_at_served_sites(k1, cfun, det, vol, served_shapes, n_requests,
+                       label):
+    """The served graph on one request with the plain NMS passed in: the
+    same detections as with the kernel, and the kernel's launches by shape
+    in the served run those of these NMS inputs, ``n_requests`` times.
+    Then the kernel at each site's inputs (``k1_time``).  Returns (sites,
+    [(boxes, valid, thr, k)])."""
+    import numpy as np
+
+    cfg = det.cfg
+    wire, window, _ = det.mold(vol)
+    seen = []
+
+    def plain(boxes, valid, thr, k):
+        seen.append((boxes.clone(), valid.clone(), thr, k))
+        return k1.sorted_nms_reference(boxes, valid, thr, k)
+
+    buf_plain = det.infer(wire, window, nms=plain).cpu().numpy()
+    buf_kernel = det.infer(wire, window).cpu().numpy()
+    nd = cfg.detection_max_instances
+    det_p = cfun.unpack_fast_output(buf_plain, nd, det.labels_shape,
+                                    bits=det.pack_bits)
+    det_k = cfun.unpack_fast_output(buf_kernel, nd, det.labels_shape,
+                                    bits=det.pack_bits)
+    check(np.array_equal(det_p[0], det_k[0]) and
+          np.array_equal(det_p[1], det_k[1]),
+          f"{label}: served detections with the plain NMS "
+          f"{det_p[0].tolist()} vs kernel {det_k[0].tolist()}")
+    agree = float((det_p[2] == det_k[2]).mean())
+    print(f"{label} plain-NMS graph: same detections; labels agree {agree}",
+          flush=True)
+    check(len(seen) == 2, "two NMS sites per request")
+    seen_shapes = {}
+    for boxes, _, _, k in seen:
+        key = (boxes.shape[0], k)
+        seen_shapes[key] = seen_shapes.get(key, 0) + n_requests
+    check(served_shapes == seen_shapes,
+          f"{label}: the served K1 launches by shape {served_shapes} are "
+          f"those of the NMS inputs taken here, {n_requests}x {seen_shapes}")
+    sites = [k1_time(k1, boxes, valid, thr, k, f"{label} site")
+             for boxes, valid, thr, k in seen]
+    return sites, seen
+
+
+def k2_time(k2, shape, n_rec, n_requests, seed, dev):
+    """K2 at one recorded launch shape: checked as in phase k2 and timed
+    beside its bound, its plain version and cuDNN's bf16 conv alone."""
+    import torch
+
+    b, ci, co, d, h, w = shape
+    calls = n_rec / n_requests
+    args = k2_inputs(b, ci, co, d, h, w, seed, dev)
+    name = f"B={b} {ci}->{co} @{d}x{h}x{w}"
+    err = k2_check(k2, args, True, f"served {name}")
+    x, wt, scale, shift = args
+    w16 = wt.to(torch.bfloat16)
+    ms = cuda_ms(lambda: k2.fused_conv3d(*args), 50)
+    plain_ms = cuda_ms(lambda: k2.fused_conv3d_reference(*args), 10)
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
+    device_ms, kernel_ms = kernel_device_ms(
+        lambda: k2.fused_conv3d(*args), K2_KERNELS)
+    bound, by = k2_bound_ms(b, ci, co, d * h * w)
+    flops = 2 * 27 * ci * co * d * h * w * b
+    print(f"k2 {name} x{calls:g} a request: kernel {ms:.4f} ms "
+          f"(device {device_ms:.4f} graph / {kernel_ms:.4f} profiler), "
+          f"plain {plain_ms:.4f} ms, cuDNN bf16 conv alone "
+          f"{library_ms:.4f} ms, bound {bound:.4g} ms ({by}); "
+          f"{flops / ms * 1e-9:.1f} TFLOP/s, {bound / ms:.4f} of the bound,"
+          f" {ms / library_ms:.3f}x cuDNN's time; max err {err:.3g}",
+          flush=True)
+    return {"shape": name, "launches": n_rec, "calls_per_request": calls,
+            "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "max_abs_err": err, "flops": flops,
+            "tflops": flops / ms * 1e-9, "bound_share": bound / ms,
+            "vs_library": ms / library_ms}
+
+
+def k2_request(shapes, label):
+    """A request's K2 numbers: each shape's weighted by its calls."""
+    req = {key: sum(s[key] * s["calls_per_request"] for s in shapes)
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                       "library_ms", "flops")}
+    n_calls = sum(s["calls_per_request"] for s in shapes)
+    print(f"k2 {label} a request ({n_calls:g} calls): kernel "
+          f"{req['ms']:.4f} ms (device {req['device_ms']:.4f}), cuDNN bf16 "
+          f"conv alone {req['library_ms']:.4f} ms, plain "
+          f"{req['plain_ms']:.4f} ms, bound {req['bound_ms']:.4f} ms; "
+          f"{req['flops'] / req['ms'] * 1e-9:.1f} TFLOP/s, "
+          f"{req['bound_ms'] / req['ms']:.4f} of the bound, "
+          f"{req['ms'] / req['library_ms']:.3f}x cuDNN's time", flush=True)
+    req.update(calls=n_calls, tflops=req["flops"] / req["ms"] * 1e-9,
+               bound_share=req["bound_ms"] / req["ms"],
+               vs_library=req["ms"] / req["library_ms"])
+    return req
+
+
+def k1_request(sites):
+    return {key: sum(s[key] for s in sites)
+            for key in ("ms", "device_ms", "kernel_ms", "plain_ms",
+                        "bound_ms")}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -717,6 +993,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr, flush=True)
         return 2
+    args = sys.argv[1:]
+    if len(args) > 1 or (args and args[0] not in CHECKPOINTS):
+        print(f"usage: chip_smoke.py [{' | '.join(CHECKPOINTS)}]",
+              file=sys.stderr, flush=True)
+        return 2
+    families = tuple(args) if args else tuple(CHECKPOINTS)
+    heart, lits = "heart" in families, "lits" in families
+    missing = [p for f in families for p in CHECKPOINTS[f]
+               if not os.path.isfile(os.path.join(ROOT, p))]
+    if missing:
+        print(f"chip_smoke: missing checkpoint(s) {missing} for "
+              f"{'/'.join(families)}", file=sys.stderr, flush=True)
+        return 1
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -731,13 +1020,15 @@ def main() -> int:
     from cfun_tpu_torch.ops import sorted_nms as k1
 
     counters = {"sorted_nms": k1, "fused_conv3d": k2}
-
     dev = torch.device("cuda", 0)
+    # by path: {kernel: launches}, request timings, device busy, peak bytes
+    launches_by_path, request_ms, busy, peak = {}, {}, {}, {}
+    detectors = []
 
     with phase("env"):
         print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-              f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}",
-              flush=True)
+              f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}"
+              f"; families {'/'.join(families)}", flush=True)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -780,6 +1071,20 @@ def main() -> int:
             n_cases += 1
         print(f"k1 exact on {n_cases} cases", flush=True)
         k1_replay_and_streams(k1, dev)
+        # the LiTS sites' sizes on seeded boxes (also with every box valid)
+        k1_lits_cases = []
+        for i, (n, k, thr) in enumerate(LITS_K1):
+            boxes, valid = nms_random(n, 20 + i, dev)
+            for tag, v in (("someinvalid", valid),
+                           ("allvalid", torch.ones_like(valid))):
+                rec = k1_time(k1, boxes, v, thr, k, f"lits-size {tag}")
+                rec["device_ms"], rec["kernel_ms"] = kernel_device_ms(
+                    lambda: k1.sorted_nms(boxes, v, thr, k), K1_KERNELS)
+                print(f"k1 lits-size {tag} N={n} k={k}: device "
+                      f"{rec['device_ms']:.4f} ms (graph replay), "
+                      f"{rec['kernel_ms']:.4f} ms (profiler, kernel alone)",
+                      flush=True)
+                k1_lits_cases.append(rec)
 
     with phase("k2"):
         for i, (b, ci, co, d, h, w, pre) in enumerate(K2_EDGE):
@@ -788,365 +1093,492 @@ def main() -> int:
         print(f"k2 within tolerance and deterministic on {len(K2_EDGE)} "
               f"edge cases", flush=True)
 
-    with phase("serve"):
-        cfg = port_config.heart_inference_config("beginning",
-                                                 nms_backend="pallas")
-        wpath = os.path.join(ROOT, "weights", "heart_synth.npz")
-        params, meta = weights.load_npz(wpath, cfg)
-        print(f"weights {os.path.relpath(wpath, ROOT)} tag={meta.get('tag')} "
-              f"stage={meta.get('stage')}", flush=True)
-        det = Detector(cfg, params)
-        check(det._pipelined and len(det._slab_ranges()) == cfg.wire_slabs,
-              "the served mold is the native slab pipeline")
-        vols = [synth_heart(seed) for seed in range(3)]
-        results, served, served_shapes, n_found, serve_t = serve_three(
-            det, vols, counters, "serve")
-        served_launches = served["sorted_nms"]
-        check(served_launches >= 1, "the served path launched sorted_nms")
-        check(served_launches == 6, "two sorted_nms launches per request")
-        check(served["fused_conv3d"] == 0, "the dense U-Net launches no K2")
-        check(n_found >= 1, "the trained model detects the synthetic heart")
+    if heart:
+        with phase("serve"):
+            cfg = port_config.heart_inference_config("beginning",
+                                                     nms_backend="pallas")
+            wpath = os.path.join(ROOT, "weights", "heart_synth.npz")
+            params, meta = weights.load_npz(wpath, cfg)
+            print(f"weights {os.path.relpath(wpath, ROOT)} "
+                  f"tag={meta.get('tag')} stage={meta.get('stage')}",
+                  flush=True)
+            det = Detector(cfg, params)
+            detectors.append(det)
+            check(det._pipelined and
+                  len(det._slab_ranges()) == cfg.wire_slabs,
+                  "the served mold is the native slab pipeline")
+            vols = [synth_heart(seed) for seed in range(3)]
+            (results, served, served_shapes, n_found, request_ms["serve"],
+             peak["serve"]) = serve_requests(det, vols, counters, "serve")
+            launches_by_path["serve"] = served
+            check(served["sorted_nms"] == 6,
+                  "two sorted_nms launches per request")
+            check(served["fused_conv3d"] == 0,
+                  "the dense U-Net launches no K2")
+            check(n_found >= 1,
+                  "the trained model detects the synthetic heart")
 
-        # the same card and weights with the NumPy mold and unmold
-        ndet = Detector(cfg, det.params, native=False)
-        nres = ndet.detect(vols[0])
-        numpy_t = dict(ndet.last_timings)
-        print(f"serve native=False request 0: "
-              f"{request_line(numpy_t, ndet.last_sub_timings, ndet.last_wire_bytes)}"
-              f"; rois {nres['rois'].tolist()} (native "
-              f"{results[0]['rois'].tolist()})", flush=True)
-        # its int8 affine comes from the molded volume's exact stats, not
-        # from a sample of the raw one: the wires differ by a step here
-        # and there, and the box may move by a voxel
-        check(nres["rois"].shape == results[0]["rois"].shape and
-              np.abs(nres["rois"] - results[0]["rois"]).max(initial=0) <= 1,
-              "the NumPy mold gives the native mold's detection")
-        del ndet
+            # the same card and weights with the NumPy mold and unmold
+            ndet = Detector(cfg, det.params, native=False)
+            nres = ndet.detect(vols[0])
+            numpy_t = dict(ndet.last_timings)
+            print(f"serve native=False request 0: "
+                  f"{request_line(numpy_t, ndet.last_sub_timings, ndet.last_wire_bytes)}"
+                  f"; rois {nres['rois'].tolist()} (native "
+                  f"{results[0]['rois'].tolist()})", flush=True)
+            # its int8 affine comes from the molded volume's exact stats,
+            # not from a sample of the raw one: the wires differ by a step
+            # here and there, and the box may move by a voxel
+            check(nres["rois"].shape == results[0]["rois"].shape and
+                  np.abs(nres["rois"] - results[0]["rois"]).max(initial=0)
+                  <= 1, "the NumPy mold gives the native mold's detection")
+            del ndet
+            kern, seen = k1_at_served_sites(
+                k1, cfun, det, vols[0], served_shapes["sorted_nms"], 3,
+                "serve")
 
-        # the same request through the plain NMS: same detections
-        wire, window, _ = det.mold(vols[0])
-        seen = []
+        with phase("serve_fused"):
+            fcfg = port_config.heart_inference_config(
+                "beginning", nms_backend="pallas", pallas_unet=True)
+            fdet = Detector(fcfg, params)
+            detectors.append(fdet)
+            (fresults, fused_launches, fused_shapes, _,
+             request_ms["serve_fused"], peak["serve_fused"]) = \
+                serve_requests(fdet, vols, counters, "serve_fused")
+            launches_by_path["serve_fused"] = fused_launches
+            check(fused_launches["fused_conv3d"] == 36,
+                  f"12 K2 launches a request, got {fused_launches}")
+            k2_record = fused_shapes["fused_conv3d"]
+            check(sum(k2_record.values()) == fused_launches["fused_conv3d"],
+                  f"K2's shape record {k2_record} adds up to its launches")
+            check({s: n / 3 for s, n in k2_record.items()} == K2_SERVED,
+                  f"K2 launches a request by (B, C_in, C_out, D, H, W): "
+                  f"recorded {k2_record} over 3 requests, want {K2_SERVED}")
+            check(fused_launches["sorted_nms"] == 6,
+                  f"two K1 launches a request, got {fused_launches}")
+            for i, (rd, rf) in enumerate(zip(results, fresults)):
+                check(np.array_equal(rd["rois"], rf["rois"]) and
+                      np.array_equal(rd["scores"], rf["scores"]),
+                      f"serve_fused {i}: detections {rf['rois'].tolist()} "
+                      f"{rf['scores'].tolist()} vs dense "
+                      f"{rd['rois'].tolist()} {rd['scores'].tolist()}")
+            agree_fd = [float((rd["mask"] == rf["mask"]).mean())
+                        for rd, rf in zip(results, fresults)]
+            print(f"serve_fused: same detections as serve; label agreement "
+                  f"with the dense path {agree_fd}", flush=True)
+            crop = capture_crop(cfun, fdet, vols[0])
+            crit_fused = unet_criterion(apply_unet, apply_unet_fused,
+                                        fdet.params["mask"]["unet"], crop,
+                                        "beginning")
 
-        def plain(boxes, valid, thr, k):
-            seen.append((boxes.clone(), valid.clone(), thr, k))
-            return k1.sorted_nms_reference(boxes, valid, thr, k)
+        with phase("serve_ft"):
+            tcfg_ft = port_config.heart_inference_config(
+                "finetune", nms_backend="pallas", pallas_unet=True)
+            wpath_ft = os.path.join(ROOT, "weights", "heart_synth_ft.npz")
+            params_ft, meta_ft = weights.load_npz(wpath_ft, tcfg_ft)
+            print(f"weights {os.path.relpath(wpath_ft, ROOT)} "
+                  f"tag={meta_ft.get('tag')} stage={meta_ft.get('stage')}",
+                  flush=True)
+            check(meta_ft.get("stage") == "finetune", "finetune checkpoint")
+            ftdet = Detector(tcfg_ft, params_ft)
+            detectors.append(ftdet)
+            check(ftdet.labels_shape == (1, 192, 192, 192),
+                  f"finetune labels shape {ftdet.labels_shape}")
+            (_, ft_launches, ft_shapes, _, request_ms["serve_ft"],
+             peak["serve_ft"]) = serve_requests(ftdet, vols, counters,
+                                                "serve_ft")
+            launches_by_path["serve_ft"] = ft_launches
+            check(ft_launches["fused_conv3d"] == 36,
+                  f"12 K2 launches a request, got {ft_launches}")
+            check(ft_shapes["fused_conv3d"] == k2_record,
+                  f"finetune K2 shapes {ft_shapes['fused_conv3d']} are the "
+                  f"fused 'beginning' path's {k2_record}")
+            check(ft_launches["sorted_nms"] == 6,
+                  f"two K1 launches a request, got {ft_launches}")
+            wire, window, _ = ftdet.mold(vols[0])
+            buf = ftdet.infer(wire, window).cpu().numpy()
+            _, _, labels = cfun.unpack_fast_output(
+                buf, tcfg_ft.detection_max_instances, ftdet.labels_shape)
+            check(labels.shape == (1, 192, 192, 192) and labels.min() >= 0
+                  and labels.max() < tcfg_ft.num_classes,
+                  f"finetune label volume {labels.shape}")
+            crop = capture_crop(cfun, ftdet, vols[0])
+            crit_ft = unet_criterion(apply_unet, apply_unet_fused,
+                                     ftdet.params["mask"]["unet"], crop,
+                                     "finetune")
+            crit_phase = head_check(apply_unet,
+                                    ftdet.params["mask"]["unet"], crop)
+            del crop
 
-        buf_plain = det.infer(wire, window, nms=plain).cpu().numpy()
-        buf_kernel = det.infer(wire, window).cpu().numpy()
-        nd = cfg.detection_max_instances
-        det_p = cfun.unpack_fast_output(buf_plain, nd, det.labels_shape)
-        det_k = cfun.unpack_fast_output(buf_kernel, nd, det.labels_shape)
-        check(np.array_equal(det_p[0], det_k[0]) and
-              np.array_equal(det_p[1], det_k[1]),
-              f"served detections with the plain NMS {det_p[0].tolist()} vs "
-              f"kernel {det_k[0].tolist()}")
-        agree = float((det_p[2] == det_k[2]).mean())
-        print(f"plain-NMS graph: same detections; labels agree {agree}",
-              flush=True)
-        check(len(seen) == 2, "two NMS sites per request")
-        seen_shapes = {}
-        for boxes, _, _, k in seen:
-            key = (boxes.shape[0], k)
-            seen_shapes[key] = seen_shapes.get(key, 0) + 3
-        check(served_shapes["sorted_nms"] == seen_shapes,
-              f"the served K1 launches by shape {served_shapes['sorted_nms']}"
-              f" are those of the NMS inputs taken here, 3x {seen_shapes}")
+    if lits:
+        with phase("serve_lits"):
+            lcfg = port_config.lits_inference_config("finetune")
+            lpath = os.path.join(ROOT, "weights", "lits_synth.npz")
+            lparams, lmeta = weights.load_npz(lpath, lcfg)
+            print(f"weights {os.path.relpath(lpath, ROOT)} "
+                  f"tag={lmeta.get('tag')} stage={lmeta.get('stage')}",
+                  flush=True)
+            check(lmeta.get("stage") == "finetune", "finetune checkpoint")
+            ldet = Detector(lcfg, lparams)
+            detectors.append(ldet)
+            check(ldet._pipelined_lits and
+                  len(ldet._slab_ranges()) == lcfg.wire_slabs,
+                  "the served LiTS mold is the native slab pipeline")
+            check(ldet.labels_shape == lcfg.image_shape and
+                  ldet.pack_bits == 2, "LiTS: one molded label volume on "
+                  "the 2-bit wire")
+            t0 = time.perf_counter()
+            held = synthetic_lits(3, 90)
+            big = synthetic_lits(1, 93, (512, 512, 400))[0][0]
+            print(f"serve_lits: made the 3 held-out 400x400x280 volumes "
+                  f"(seed 90) and one 512x512x400 in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            lvols = [v for v, _ in held] + [big]
+            nl = len(lvols)
+            (lresults, llaunch, lshapes, _, request_ms["serve_lits"],
+             peak["serve_lits"]) = serve_requests(ldet, lvols, counters,
+                                                  "serve_lits")
+            launches_by_path["serve_lits"] = llaunch
+            check(llaunch["sorted_nms"] == 2 * nl,
+                  f"two K1 launches a request, got {llaunch}")
+            check(llaunch["fused_conv3d"] == 0,
+                  "the dense U-Net launches no K2")
+            for i, r in enumerate(lresults):
+                check(set(np.unique(r["mask"]).tolist()) <= {0, 1, 2},
+                      f"serve_lits {i}: labels within {{0, 1, 2}}")
+                check(len(r["scores"]) >= 1 or i == nl - 1,
+                      f"serve_lits {i}: a detection on each held-out volume")
+            wire_up = ldet.last_wire_bytes
+            check(wire_up == {"up": 256 * 320 * 320,
+                              "down": 10 * 33 + 256 * 320 * 320 // 4},
+                  f"LiTS wire bytes {wire_up}")
+            dice = np.array([per_class_dice(lab, r["mask"], 3)
+                             for (_, lab), r in zip(held, lresults)])
+            lits_dice = [float(v) for v in dice.mean(axis=0)]
+            print(f"serve_lits Dice (liver, tumour) per held-out volume "
+                  f"{dice.tolist()}; mean {lits_dice}; the JAX package's "
+                  f"recorded {list(LITS_JAX_DICE)}", flush=True)
+            check(lits_dice[0] >= 0.95 and lits_dice[1] >= 0.93,
+                  f"mean Dice liver >= 0.95 and tumour >= 0.93: "
+                  f"{lits_dice}")
 
-        kern = []
-        for boxes, valid, thr, k in seen:
-            idx, keep = k1.sorted_nms(boxes, valid, thr, k)
-            ridx, rkeep = k1.sorted_nms_reference(boxes, valid, thr, k)
-            check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
-                  f"k1 at served shape N={boxes.shape[0]} k={k}")
-            err = float((idx.long() - ridx.long()).abs().max())
-            kept = int(rkeep.sum())
-            ms = cuda_ms(lambda: k1.sorted_nms(boxes, valid, thr, k), 50)
-            plain_ms = cuda_ms(
-                lambda: k1.sorted_nms_reference(boxes, valid, thr, k), 5, 1)
-            bound, by, pairs = nms_bound_ms(valid, ridx, rkeep)
-            kern.append({"shape": f"{boxes.shape[0]}->{k}@{thr}",
-                         "kept": kept, "iou_pairs_needed": pairs,
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound, "bound_by": by,
-                         "max_abs_err": err})
-            print(f"k1 N={boxes.shape[0]} k={k} thr={thr}: kernel {ms:.4f} ms,"
-                  f" plain {plain_ms:.3f} ms, bound {bound:.3g} ms ({by}), "
-                  f"kept {kept}, IoU pairs needed {pairs}", flush=True)
+            ndet = Detector(lcfg, ldet.params, native=False)
+            nres = ndet.detect(held[0][0])
+            lnumpy_t = dict(ndet.last_timings)
+            print(f"serve_lits native=False request 0: "
+                  f"{request_line(lnumpy_t, ndet.last_sub_timings, ndet.last_wire_bytes)}"
+                  f"; rois {nres['rois'].tolist()} (native "
+                  f"{lresults[0]['rois'].tolist()})", flush=True)
+            check(nres["rois"].shape == lresults[0]["rois"].shape and
+                  np.abs(nres["rois"] - lresults[0]["rois"]).max(initial=0)
+                  <= 1, "the NumPy LiTS mold gives the native mold's "
+                  "detections")
+            lnumpy_agree = float((nres["mask"] == lresults[0]["mask"]).mean())
+            print(f"serve_lits native=False labels agree {lnumpy_agree}",
+                  flush=True)
+            del ndet
+            lkern, lseen = k1_at_served_sites(
+                k1, cfun, ldet, held[0][0], lshapes["sorted_nms"], nl,
+                "serve_lits")
+            check(sorted((s["shape"] for s in lkern)) ==
+                  sorted(f"{n}->{k}@{t}" for n, k, t in LITS_K1),
+                  f"the LiTS NMS sites {[s['shape'] for s in lkern]}")
 
-    with phase("serve_fused"):
-        fcfg = port_config.heart_inference_config(
-            "beginning", nms_backend="pallas", pallas_unet=True)
-        fdet = Detector(fcfg, params)
-        fresults, fused_launches, fused_shapes, _, fused_t = serve_three(
-            fdet, vols, counters, "serve_fused")
-        check(fused_launches["fused_conv3d"] == 36,
-              f"12 K2 launches a request, got {fused_launches}")
-        k2_record = fused_shapes["fused_conv3d"]
-        check(sum(k2_record.values()) == fused_launches["fused_conv3d"],
-              f"K2's shape record {k2_record} adds up to its launches")
-        check({s: n / 3 for s, n in k2_record.items()} == K2_SERVED,
-              f"K2 launches a request by (B, C_in, C_out, D, H, W): "
-              f"recorded {k2_record} over 3 requests, want {K2_SERVED}")
-        check(fused_launches["sorted_nms"] == 6,
-              f"two K1 launches a request, got {fused_launches}")
-        for i, (rd, rf) in enumerate(zip(results, fresults)):
-            check(np.array_equal(rd["rois"], rf["rois"]) and
-                  np.array_equal(rd["scores"], rf["scores"]),
-                  f"serve_fused {i}: detections {rf['rois'].tolist()} "
-                  f"{rf['scores'].tolist()} vs dense {rd['rois'].tolist()} "
-                  f"{rd['scores'].tolist()}")
-        agree_fd = [float((rd["mask"] == rf["mask"]).mean())
-                    for rd, rf in zip(results, fresults)]
-        print(f"serve_fused: same detections as serve; label agreement "
-              f"with the dense path {agree_fd}", flush=True)
-        crop = capture_crop(cfun, fdet, vols[0])
-        crit_fused = unet_criterion(apply_unet, apply_unet_fused,
-                                    fdet.params["mask"]["unet"], crop,
-                                    "beginning")
-
-    with phase("serve_ft"):
-        tcfg_ft = port_config.heart_inference_config(
-            "finetune", nms_backend="pallas", pallas_unet=True)
-        wpath_ft = os.path.join(ROOT, "weights", "heart_synth_ft.npz")
-        params_ft, meta_ft = weights.load_npz(wpath_ft, tcfg_ft)
-        print(f"weights {os.path.relpath(wpath_ft, ROOT)} "
-              f"tag={meta_ft.get('tag')} stage={meta_ft.get('stage')}",
-              flush=True)
-        check(meta_ft.get("stage") == "finetune", "finetune checkpoint")
-        ftdet = Detector(tcfg_ft, params_ft)
-        check(ftdet.labels_shape == (1, 192, 192, 192),
-              f"finetune labels shape {ftdet.labels_shape}")
-        _, ft_launches, ft_shapes, _, ft_t = serve_three(
-            ftdet, vols, counters, "serve_ft")
-        check(ft_launches["fused_conv3d"] == 36,
-              f"12 K2 launches a request, got {ft_launches}")
-        check(ft_shapes["fused_conv3d"] == k2_record,
-              f"finetune K2 shapes {ft_shapes['fused_conv3d']} are the "
-              f"fused 'beginning' path's {k2_record}")
-        check(ft_launches["sorted_nms"] == 6,
-              f"two K1 launches a request, got {ft_launches}")
-        wire, window, _ = ftdet.mold(vols[0])
-        buf = ftdet.infer(wire, window).cpu().numpy()
-        _, _, labels = cfun.unpack_fast_output(
-            buf, tcfg_ft.detection_max_instances, ftdet.labels_shape)
-        check(labels.shape == (1, 192, 192, 192) and labels.min() >= 0 and
-              labels.max() < tcfg_ft.num_classes,
-              f"finetune label volume {labels.shape}")
-        crop = capture_crop(cfun, ftdet, vols[0])
-        crit_ft = unet_criterion(apply_unet, apply_unet_fused,
-                                 ftdet.params["mask"]["unet"], crop,
-                                 "finetune")
-        crit_phase = head_check(apply_unet, ftdet.params["mask"]["unet"],
-                                crop)
+        with phase("serve_lits_fused"):
+            lfcfg = port_config.lits_inference_config("finetune",
+                                                      pallas_unet=True)
+            lfdet = Detector(lfcfg, ldet.params)
+            detectors.append(lfdet)
+            (lfresults, lflaunch, lfshapes, _,
+             request_ms["serve_lits_fused"], peak["serve_lits_fused"]) = \
+                serve_requests(lfdet, lvols, counters, "serve_lits_fused")
+            launches_by_path["serve_lits_fused"] = lflaunch
+            check(lflaunch["fused_conv3d"] == 8 * nl,
+                  f"8 K2 launches a request, got {lflaunch}")
+            lk2_record = lfshapes["fused_conv3d"]
+            check({s: n / nl for s, n in lk2_record.items()} ==
+                  K2_SERVED_LITS,
+                  f"LiTS K2 launches a request by (B, C_in, C_out, D, H, "
+                  f"W): recorded {lk2_record} over {nl} requests, want "
+                  f"{K2_SERVED_LITS}")
+            check(lflaunch["sorted_nms"] == 2 * nl,
+                  f"two K1 launches a request, got {lflaunch}")
+            for i, (rd, rf) in enumerate(zip(lresults, lfresults)):
+                check(np.array_equal(rd["rois"], rf["rois"]) and
+                      np.array_equal(rd["scores"], rf["scores"]),
+                      f"serve_lits_fused {i}: detections "
+                      f"{rf['rois'].tolist()} {rf['scores'].tolist()} vs "
+                      f"dense {rd['rois'].tolist()} {rd['scores'].tolist()}")
+            fdice = np.array([per_class_dice(lab, r["mask"], 3)
+                              for (_, lab), r in zip(held, lfresults)])
+            lits_fused_dice = [float(v) for v in fdice.mean(axis=0)]
+            agree_lf = [float((rd["mask"] == rf["mask"]).mean())
+                        for rd, rf in zip(lresults, lfresults)]
+            print(f"serve_lits_fused: same detections as serve_lits; label "
+                  f"agreement with the dense path {agree_lf}; mean Dice "
+                  f"{lits_fused_dice}", flush=True)
+            crop = capture_crop(cfun, lfdet, held[0][0])
+            check(tuple(crop.shape) == (10, 1, 32, 80, 80),
+                  f"LiTS crops {tuple(crop.shape)}")
+            crit_lits = unet_criterion(apply_unet, apply_unet_fused,
+                                       lfdet.params["mask"]["unet"], crop,
+                                       "finetune")
+            del crop
 
     with phase("stream"):
-        svols = [synth_heart(seed) for seed in range(4)]
-        torch.cuda.synchronize()
-        with stage_timeline(det) as serial_records:
-            t0 = time.perf_counter()
-            serial = [det.detect(v) for v in svols]
-            serial_ms = (time.perf_counter() - t0) * 1e3
-        reset_counts(counters)
-        with stage_timeline(det) as stream_records:
-            t0 = time.perf_counter()
-            streamed = list(det.detect_stream(svols))
-            stream_ms = (time.perf_counter() - t0) * 1e3
-        stream_launches = {name: mod.launches
-                           for name, mod in counters.items()}
-        print_timeline("serial", serial_records)
-        print_timeline("stream", stream_records)
-        check(len(streamed) == len(serial), "stream: one result a volume")
-        for i, (a, b) in enumerate(zip(streamed, serial)):
-            check(np.array_equal(a["mask"], b["mask"]) and
-                  np.array_equal(a["rois"], b["rois"]) and
-                  np.array_equal(a["scores"], b["scores"]),
-                  f"stream result {i} equals serial detect")
-        check(stream_launches["sorted_nms"] == 2 * len(svols),
-              f"two K1 launches a volume in the stream: {stream_launches}")
-        n_sync, sync_msgs = sync_count(det, svols[0])
-        # the pipeline's period once full: the ms between the first and the
-        # last result over the results in between
-        done = sorted(end for name, _, _, end in stream_records
-                      if name == "finish")
-        period_ms = (done[-1] - done[0]) / (len(done) - 1)
-        print(f"stream: {len(svols)} volumes equal serial detect; "
-              f"{stream_ms / len(svols):.3f} ms a volume sustained "
-              f"({stream_ms:.3f} ms in all; {period_ms:.3f} ms between "
-              f"results) against {serial_ms / len(svols):.3f} ms a volume "
-              f"serial ({serial_ms:.3f} ms); launches {stream_launches}",
-              flush=True)
-        print(f"stream: one request's mold + dispatch made {n_sync} "
-              f"synchronizing CUDA call(s) {sync_msgs}", flush=True)
+        n_sync, sync_msgs, stream_stats = None, [], None
+        if heart:
+            svols = [synth_heart(seed) for seed in range(4)]
+            torch.cuda.synchronize()
+            with stage_timeline(det) as serial_records:
+                t0 = time.perf_counter()
+                serial = [det.detect(v) for v in svols]
+                serial_ms = (time.perf_counter() - t0) * 1e3
+            reset_counts(counters)
+            with stage_timeline(det) as stream_records:
+                t0 = time.perf_counter()
+                streamed = list(det.detect_stream(svols))
+                stream_ms = (time.perf_counter() - t0) * 1e3
+            stream_launches = {name: mod.launches
+                               for name, mod in counters.items()}
+            launches_by_path["stream"] = stream_launches
+            print_timeline("serial", serial_records)
+            print_timeline("stream", stream_records)
+            check(len(streamed) == len(serial), "stream: one result a volume")
+            for i, (a, b) in enumerate(zip(streamed, serial)):
+                check(np.array_equal(a["mask"], b["mask"]) and
+                      np.array_equal(a["rois"], b["rois"]) and
+                      np.array_equal(a["scores"], b["scores"]),
+                      f"stream result {i} equals serial detect")
+            check(stream_launches["sorted_nms"] == 2 * len(svols),
+                  f"two K1 launches a volume in the stream: "
+                  f"{stream_launches}")
+            n_sync, sync_msgs = sync_count(det, svols[0])
+            # the pipeline's period once full: the ms between the first and
+            # the last result over the results in between
+            done = sorted(end for name, _, _, end in stream_records
+                          if name == "finish")
+            period_ms = (done[-1] - done[0]) / (len(done) - 1)
+            print(f"stream: {len(svols)} volumes equal serial detect; "
+                  f"{stream_ms / len(svols):.3f} ms a volume sustained "
+                  f"({stream_ms:.3f} ms in all; {period_ms:.3f} ms between "
+                  f"results) against {serial_ms / len(svols):.3f} ms a "
+                  f"volume serial ({serial_ms:.3f} ms); launches "
+                  f"{stream_launches}", flush=True)
+            print(f"stream: one request's mold + dispatch made {n_sync} "
+                  f"synchronizing CUDA call(s) {sync_msgs}", flush=True)
+            stream_stats = {
+                "volumes": len(svols),
+                "sustained_ms_per_volume": stream_ms / len(svols),
+                "serial_ms_per_volume": serial_ms / len(svols),
+                "ms_between_results": period_ms,
+                "sync_calls_per_request": n_sync,
+                "sync_messages": sync_msgs}
+        if lits:
+            n_sync_lits, sync_msgs_lits = sync_count(ldet, held[1][0])
+            print(f"stream: one LiTS request's mold + dispatch made "
+                  f"{n_sync_lits} synchronizing CUDA call(s) "
+                  f"{sync_msgs_lits}", flush=True)
 
     with phase("k2_served"):
-        k2_shapes = []
-        for i, (shape, n_rec) in enumerate(sorted(k2_record.items())):
-            b, ci, co, d, h, w = shape
-            calls = n_rec / 3
-            args = k2_inputs(b, ci, co, d, h, w, 200 + i, dev)
-            name = f"B={b} {ci}->{co} @{d}x{h}x{w}"
-            err = k2_check(k2, args, True, f"served {name}")
-            x, wt, scale, shift = args
-            w16 = wt.to(torch.bfloat16)
-            ms = cuda_ms(lambda: k2.fused_conv3d(*args), 50)
-            plain_ms = cuda_ms(lambda: k2.fused_conv3d_reference(*args), 10)
-            library_ms = cuda_ms(
-                lambda: torch.nn.functional.conv3d(x, w16, padding=1), 50)
-            device_ms, kernel_ms = kernel_device_ms(
-                lambda: k2.fused_conv3d(*args), K2_KERNELS)
-            bound, by = k2_bound_ms(b, ci, co, d * h * w)
-            flops = 2 * 27 * ci * co * d * h * w * b
-            k2_shapes.append({
-                "shape": name, "launches": n_rec, "calls_per_request": calls,
-                "ms": ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms, "max_abs_err": err,
-                "flops": flops, "tflops": flops / ms * 1e-9,
-                "bound_share": bound / ms, "vs_library": ms / library_ms})
-            print(f"k2 {name} x{calls:g} a request: kernel {ms:.4f} ms "
-                  f"(device {device_ms:.4f} graph / {kernel_ms:.4f} "
-                  f"profiler), plain {plain_ms:.4f} ms, cuDNN bf16 conv "
-                  f"alone {library_ms:.4f} ms, bound {bound:.4g} ms ({by});"
-                  f" {flops / ms * 1e-9:.1f} TFLOP/s, {bound / ms:.4f} of "
-                  f"the bound, {ms / library_ms:.3f}x cuDNN's time; max err "
-                  f"{err:.3g}", flush=True)
-        k2_req = {key: sum(s[key] * s["calls_per_request"]
-                           for s in k2_shapes)
-                  for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                              "library_ms", "flops")}
-        n_calls = sum(s["calls_per_request"] for s in k2_shapes)
-        print(f"k2 a request ({n_calls:g} calls): kernel "
-              f"{k2_req['ms']:.4f} ms (device {k2_req['device_ms']:.4f}), "
-              f"cuDNN bf16 conv alone "
-              f"{k2_req['library_ms']:.4f} ms, plain {k2_req['plain_ms']:.4f}"
-              f" ms, bound {k2_req['bound_ms']:.4f} ms; "
-              f"{k2_req['flops'] / k2_req['ms'] * 1e-9:.1f} TFLOP/s, "
-              f"{k2_req['bound_ms'] / k2_req['ms']:.4f} of the bound, "
-              f"{k2_req['ms'] / k2_req['library_ms']:.3f}x cuDNN's time",
-              flush=True)
+        k2_paths = {}
+        if heart:
+            k2_paths["serve_fused"] = [
+                k2_time(k2, shape, n_rec, 3, 200 + i, dev)
+                for i, (shape, n_rec) in enumerate(sorted(k2_record.items()))]
+        if lits:
+            k2_paths["serve_lits_fused"] = [
+                k2_time(k2, shape, n_rec, nl, 300 + i, dev)
+                for i, (shape, n_rec) in enumerate(sorted(lk2_record.items()))]
+        k2_req = {path: k2_request(shapes, path)
+                  for path, shapes in k2_paths.items()}
 
     with phase("profile"):
-        busy_dense, dense_kernels = profile_requests(det, vols, "serve")
-        h2d = {name: ms for name, ms in dense_kernels.items()
-               if "memcpy htod" in name.lower()}
-        check(any("pinned" in name.lower() for name in h2d),
-              f"the wire uploads from page-locked memory: {h2d}")
-        busy_fused, by_kernel = profile_requests(fdet, vols, "serve_fused")
-        busy_ft, _ = profile_requests(ftdet, vols, "serve_ft")
-        k2_busy = sum(ms for name, ms in by_kernel.items()
-                      if any(k in name for k in K2_KERNELS))
-        print(f"profile: K2 {k2_busy:.3f} ms of {busy_fused:.3f} ms device "
-              f"busy a fused request (dense request {busy_dense:.3f} ms, "
-              f"fused finetune request {busy_ft:.3f} ms)", flush=True)
-        for site, (boxes, valid, thr, k) in zip(kern, seen):
-            replay, prof_ms = kernel_device_ms(
-                lambda: k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
-            site["device_ms"] = replay
-            site["kernel_ms"] = prof_ms
-            print(f"profile: k1 N={boxes.shape[0]} k={k} thr={thr}: device "
-                  f"{replay:.4f} ms (graph replay), {prof_ms:.4f} ms "
-                  f"(profiler, kernel alone)", flush=True)
+        h2d, paste = {}, None
+        if heart:
+            busy["serve"], dense_kernels = profile_requests(det, vols,
+                                                            "serve")
+            h2d["serve"] = {name: ms for name, ms in dense_kernels.items()
+                            if "memcpy htod" in name.lower()}
+            busy["serve_fused"], by_kernel = profile_requests(
+                fdet, vols, "serve_fused")
+            busy["serve_ft"], _ = profile_requests(ftdet, vols, "serve_ft")
+            k2_busy = sum(ms for name, ms in by_kernel.items()
+                          if any(k in name for k in K2_KERNELS))
+            print(f"profile: K2 {k2_busy:.3f} ms of "
+                  f"{busy['serve_fused']:.3f} ms device busy a fused request "
+                  f"(dense request {busy['serve']:.3f} ms, fused finetune "
+                  f"request {busy['serve_ft']:.3f} ms)", flush=True)
+            for site, (boxes, valid, thr, k) in zip(kern, seen):
+                site["device_ms"], site["kernel_ms"] = kernel_device_ms(
+                    lambda: k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
+                print(f"profile: k1 serve N={boxes.shape[0]} k={k} "
+                      f"thr={thr}: device {site['device_ms']:.4f} ms (graph "
+                      f"replay), {site['kernel_ms']:.4f} ms (profiler, "
+                      f"kernel alone)", flush=True)
+        if lits:
+            hvols = [v for v, _ in held]
+            busy["serve_lits"], lits_kernels = profile_requests(
+                ldet, hvols, "serve_lits")
+            h2d["serve_lits"] = {name: ms for name, ms in lits_kernels.items()
+                                 if "memcpy htod" in name.lower()}
+            busy["serve_lits_fused"], lf_kernels = profile_requests(
+                lfdet, hvols, "serve_lits_fused")
+            lk2_busy = sum(ms for name, ms in lf_kernels.items()
+                           if any(k in name for k in K2_KERNELS))
+            print(f"profile: K2 {lk2_busy:.3f} ms of "
+                  f"{busy['serve_lits_fused']:.3f} ms device busy a fused "
+                  f"LiTS request (dense LiTS request "
+                  f"{busy['serve_lits']:.3f} ms)", flush=True)
+            paste = paste_profile(cfun, ldet, held[0][0])
+            for site, (boxes, valid, thr, k) in zip(lkern, lseen):
+                site["device_ms"], site["kernel_ms"] = kernel_device_ms(
+                    lambda: k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
+                print(f"profile: k1 serve_lits N={boxes.shape[0]} k={k} "
+                      f"thr={thr}: device {site['device_ms']:.4f} ms (graph "
+                      f"replay), {site['kernel_ms']:.4f} ms (profiler, "
+                      f"kernel alone)", flush=True)
+        for path, pinned in h2d.items():
+            check(any("pinned" in name.lower() for name in pinned),
+                  f"{path}: the wire uploads from page-locked memory: "
+                  f"{pinned}")
 
     with phase("small"):
-        tcfg = port_config.tiny_config(detection_max_instances=1,
-                                       wire_image_dtype="int8",
-                                       fast_unmold=True,
-                                       device_normalize=True)
-        tparams = weights.init_params(tcfg, seed=0)
-        # a confident FG class, so the small graph has a detection to hold
-        tparams["classifier"]["cls"]["b"] = torch.tensor([0.0, 3.0])
-        d, h, w = tcfg.image_shape
-        vol = synth_heart(7, (h + 16, w, d + 8))
         # full float32 on the card (cuDNN convs default to TF32)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        r_gpu = Detector(tcfg, tparams).detect(vol)
-        r_cpu = Detector(tcfg, tparams, device="cpu").detect(vol)
-        check(len(r_cpu["scores"]) >= 1, "small: a detection to compare")
-        check(r_gpu["rois"].shape == r_cpu["rois"].shape,
-              "small: detection count")
-        check(np.abs(r_gpu["rois"] - r_cpu["rois"]).max(initial=0) <= 1,
-              f"small: boxes {r_gpu['rois'].tolist()} vs "
-              f"{r_cpu['rois'].tolist()}")
-        check(np.allclose(r_gpu["scores"], r_cpu["scores"], atol=1e-4),
-              "small: scores")
-        small_agree = float((r_gpu["mask"] == r_cpu["mask"]).mean())
-        check(small_agree >= 0.99, f"small: labels agree {small_agree}")
-        print(f"small config: card vs CPU rois {r_gpu['rois'].tolist()} / "
-              f"{r_cpu['rois'].tolist()}, labels agree {small_agree}",
-              flush=True)
+        small_cfgs = []
+        if heart:
+            small_cfgs.append(("tiny heart", port_config.tiny_config(
+                detection_max_instances=1, wire_image_dtype="int8",
+                fast_unmold=True, device_normalize=True)))
+        if lits:
+            small_cfgs.append(("tiny LiTS", port_config.tiny_config().replace(
+                name="lits", num_classes=3, backbone="P3D35",
+                backbone_stem_kernel=(5, 7, 7), intensity_norm="hu_window",
+                pad_shape=(64, 128, 128), mask_shape_override=(16, 16, 16),
+                mask_pool_size=(16, 16, 16), unet_dropout_rate=0.0,
+                detection_max_instances=3, wire_image_dtype="int8",
+                wire_int8_scale=127.0, fast_unmold=True)))
+        small_agree = {}
+        for name, tcfg in small_cfgs:
+            tparams = weights.init_params(tcfg, seed=0)
+            # a confident FG class, so the small graph has detections
+            tparams["classifier"]["cls"]["b"] = torch.tensor([0.0, 3.0])
+            d, h, w = tcfg.image_shape
+            if tcfg.name == "lits":
+                vol = synthetic_lits(1, 7, (100, 110, 50))[0][0]
+            else:
+                vol = synth_heart(7, (h + 16, w, d + 8))
+            r_gpu = Detector(tcfg, tparams).detect(vol)
+            r_cpu = Detector(tcfg, tparams, device="cpu").detect(vol)
+            check(len(r_cpu["scores"]) >= 1, f"small {name}: a detection")
+            check(r_gpu["rois"].shape == r_cpu["rois"].shape,
+                  f"small {name}: detection count")
+            check(np.abs(r_gpu["rois"] - r_cpu["rois"]).max(initial=0) <= 1,
+                  f"small {name}: boxes {r_gpu['rois'].tolist()} vs "
+                  f"{r_cpu['rois'].tolist()}")
+            check(np.allclose(r_gpu["scores"], r_cpu["scores"], atol=1e-4),
+                  f"small {name}: scores")
+            agree = float((r_gpu["mask"] == r_cpu["mask"]).mean())
+            check(agree >= 0.99, f"small {name}: labels agree {agree}")
+            small_agree[name] = agree
+            print(f"small {name} config: card vs CPU rois "
+                  f"{r_gpu['rois'].tolist()} / {r_cpu['rois'].tolist()}, "
+                  f"labels agree {agree}", flush=True)
 
-    for d in (det, fdet, ftdet):
+    for d in detectors:
         d.close()
     total = time.perf_counter() - _T0
     print(f"total {total:.3f} s", flush=True)
-    per_req_ms = sum(s["ms"] for s in kern)
+
+    # K1: every site the served paths launched it at; its request numbers
+    # are the first served path's (serve, else serve_lits)
+    k1_paths = {}
+    if heart:
+        k1_paths["serve"] = kern
+    if lits:
+        k1_paths["serve_lits"] = lkern
+    k1_main = next(iter(k1_paths.values()))
+    k1_req = k1_request(k1_main)
+    k1_launch = {p: v["sorted_nms"] for p, v in launches_by_path.items()}
+    k2_launch = {p: v["fused_conv3d"] for p, v in launches_by_path.items()}
+    for path, n in k1_launch.items():
+        check(n >= 1, f"K1 launched on {path}")
+    for path in ("serve_fused", "serve_ft", "serve_lits_fused"):
+        if path in k2_launch:
+            check(k2_launch[path] >= 1, f"K2 launched on {path}")
+    k2_main_path = "serve_fused" if heart else "serve_lits_fused"
+    k2_main = k2_req[k2_main_path]
+    k2_shapes = [s for shapes in k2_paths.values() for s in shapes]
     line = {"kernels": [{
         "name": "sorted_nms", "route": "cuda",
         "source": "cfun_tpu_torch/csrc/sorted_nms.cu",
         "replaces": "cfun_tpu/ops/pallas_nms.py:93",
-        "shape": " + ".join(s["shape"] for s in kern),
-        "launches": served_launches,
-        "launches_per_request": served_launches / 3,
-        "max_abs_err": max(s["max_abs_err"] for s in kern),
-        "ms": per_req_ms,
-        "device_ms": sum(s["device_ms"] for s in kern),
-        "kernel_ms": sum(s["kernel_ms"] for s in kern),
-        "plain_ms": sum(s["plain_ms"] for s in kern),
-        "bound_ms": sum(s["bound_ms"] for s in kern),
-        "bound_by": max(kern, key=lambda s: s["bound_ms"])["bound_by"],
+        "shape": " + ".join(s["shape"] for s in k1_main),
+        "launches": sum(k1_launch.values()),
+        "max_abs_err": max(s["max_abs_err"]
+                           for sites in k1_paths.values() for s in sites),
+        "ms": k1_req["ms"], "device_ms": k1_req["device_ms"],
+        "kernel_ms": k1_req["kernel_ms"], "plain_ms": k1_req["plain_ms"],
+        "bound_ms": k1_req["bound_ms"],
+        "bound_by": max(k1_main, key=lambda s: s["bound_ms"])["bound_by"],
         "library_ms": None, "exact_match": True,
+        "request_of": next(iter(k1_paths)),
+        "per_request_by_path": {p: k1_request(s)
+                                for p, s in k1_paths.items()},
         "ptxas": [k for k in ptxas if k["kernel"].startswith(K1_KERNELS)],
-        "launches_by_path": {"serve": served["sorted_nms"],
-                             "serve_fused": fused_launches["sorted_nms"],
-                             "serve_ft": ft_launches["sorted_nms"],
-                             "stream": stream_launches["sorted_nms"]},
-        "per_shape": kern}, {
+        "launches_by_path": k1_launch,
+        "per_shape": [s for sites in k1_paths.values() for s in sites],
+        "lits_size_cases": k1_lits_cases}, {
         "name": "fused_conv3d", "route": "cuda",
         "route_note": "tensor cores (mma.sync m16n8k16 bf16, f32 "
                       "accumulation), implicit GEMM",
         "source": "cfun_tpu_torch/csrc/fused_conv3d.cu",
         "replaces": "cfun_tpu/ops/pallas_conv.py:179",
         "shape": " + ".join(f"{s['calls_per_request']:g}x {s['shape']}"
-                            for s in k2_shapes),
-        "launches": fused_launches["fused_conv3d"],
-        "launches_per_request": fused_launches["fused_conv3d"] / 3,
-        "launches_by_path": {"serve": served["fused_conv3d"],
-                             "serve_fused": fused_launches["fused_conv3d"],
-                             "serve_ft": ft_launches["fused_conv3d"],
-                             "stream": stream_launches["fused_conv3d"]},
+                            for s in k2_paths[k2_main_path]),
+        "launches": sum(k2_launch.values()),
+        "launches_by_path": k2_launch,
         "max_abs_err": max(s["max_abs_err"] for s in k2_shapes),
-        "ms": k2_req["ms"], "device_ms": k2_req["device_ms"],
-        "plain_ms": k2_req["plain_ms"], "bound_ms": k2_req["bound_ms"],
-        "bound_by": max(k2_shapes, key=lambda s: s["bound_ms"] *
-                        s["calls_per_request"])["bound_by"],
-        "library_ms": k2_req["library_ms"],
-        "tflops": k2_req["flops"] / k2_req["ms"] * 1e-9,
-        "bound_share": k2_req["bound_ms"] / k2_req["ms"],
-        "vs_library": k2_req["ms"] / k2_req["library_ms"],
+        "ms": k2_main["ms"], "device_ms": k2_main["device_ms"],
+        "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound_ms"],
+        "bound_by": max(k2_paths[k2_main_path], key=lambda s: s["bound_ms"]
+                        * s["calls_per_request"])["bound_by"],
+        "library_ms": k2_main["library_ms"],
+        "tflops": k2_main["tflops"], "bound_share": k2_main["bound_share"],
+        "vs_library": k2_main["vs_library"],
+        "request_of": k2_main_path, "per_request_by_path": k2_req,
         "ptxas": [k for k in ptxas if k["kernel"].startswith(K2_KERNELS)],
         "library": "torch.nn.functional.conv3d in bf16 (cuDNN), the conv "
                    "alone: no PyTorch call computes the fused function",
-        "unet_criterion": {"beginning": crit_fused, "finetune": crit_ft},
+        "unet_criterion": dict(
+            **({"beginning": crit_fused, "finetune": crit_ft}
+               if heart else {}),
+            **({"lits_finetune": crit_lits} if lits else {})),
         "per_shape": k2_shapes}]}
     serving = {"serving": {
-        "card": card, "threads": threads,
+        "card": card, "threads": threads, "families": list(families),
         "request_ms": {label: [{k: v * 1e3 for k, v in t.items()}
                                for t in ts]
-                       for label, ts in (("serve", serve_t),
-                                         ("serve_fused", fused_t),
-                                         ("serve_ft", ft_t))},
-        "numpy_mold_request_ms": {k: v * 1e3 for k, v in numpy_t.items()},
-        "device_busy_ms": {"serve": busy_dense, "serve_fused": busy_fused,
-                           "serve_ft": busy_ft},
-        "h2d_ms": h2d,
-        "stream": {"volumes": len(svols),
-                   "sustained_ms_per_volume": stream_ms / len(svols),
-                   "serial_ms_per_volume": serial_ms / len(svols),
-                   "ms_between_results": period_ms,
-                   "sync_calls_per_request": n_sync,
-                   "sync_messages": sync_msgs},
-        "phase_forms": crit_phase}}
+                       for label, ts in request_ms.items()},
+        "device_busy_ms": busy, "peak_bytes": peak,
+        "launches_by_path": launches_by_path, "h2d_ms": h2d}}
+    if heart:
+        serving["serving"].update(
+            numpy_mold_request_ms={k: v * 1e3 for k, v in numpy_t.items()},
+            stream=stream_stats, phase_forms=crit_phase)
+    if lits:
+        serving["serving"].update(
+            lits_numpy_request_ms={k: v * 1e3 for k, v in lnumpy_t.items()},
+            lits_numpy_label_agree=lnumpy_agree,
+            lits_dice={"serve_lits": lits_dice,
+                       "serve_lits_fused": lits_fused_dice,
+                       "jax_recorded": list(LITS_JAX_DICE)},
+            lits_sync_calls_per_request=n_sync_lits,
+            lits_sync_messages=sync_msgs_lits,
+            overlap_paste=paste, lits_wire_bytes=wire_up)
+    serving["serving"]["small_label_agree"] = small_agree
     print(json.dumps(serving), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)

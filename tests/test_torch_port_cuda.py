@@ -41,7 +41,9 @@ def _nms_inputs(n, seed, device):
     # around the 64-box words and the kernel's staging limit
     (63, 63, 0.3), (64, 64, 0.7), (127, 1, 0.3), (128, 128, 0.7),
     (129, 64, 0.3), (1024, 1024, 0.3), (1025, 64, 0.7), (1200, 1200, 0.3),
-    (4096, 1, 0.7), (4096, 64, 0.3)])
+    (4096, 1, 0.7), (4096, 64, 0.3),
+    # the LiTS sites: propose and refine_detections
+    (1000, 50, 0.7), (50, 10, 0.7)])
 def test_kernel_matches_plain(cuda, n, k, thr):
     boxes, valid = _nms_inputs(n, n, cuda)
     before = k1.launches
@@ -164,7 +166,11 @@ def test_detect_stream_on_the_card(cuda):
     (1, 160, 160, 3, 5, 17, False), (3, 20, 20, 7, 13, 11, True),
     (1, 8, 24, 3, 5, 1, True), (1, 20, 81, 4, 9, 10, False),
     (2, 24, 161, 3, 7, 12, True), (1, 25, 24, 5, 11, 13, True),
-    (1, 40, 81, 3, 6, 1, True)])
+    (1, 40, 81, 3, 6, 1, True),
+    # the LiTS U-Net's batch of 10 and its channel counts (C_out 128 is
+    # split over blockIdx.y), at a small crop
+    (10, 32, 32, 8, 20, 20, True), (10, 64, 128, 4, 10, 10, True),
+    (10, 128, 64, 4, 10, 10, False)])
 def test_fused_conv_matches_plain(cuda, b, c, co, d, h, w, pre_lrelu):
     """K2 against its plain version: y within one bf16 ulp of its
     magnitude plus 2^-16 of the sum of |terms| (the f32 sums'
@@ -216,3 +222,62 @@ def test_fused_conv_kernel_writes_bf16_only(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         k2.fused_conv3d(x, w, sc, sh, out_dtype=torch.float32)
     assert k2.launches == before
+
+
+def _tiny_lits_detector(device, **overrides):
+    cfg = pconfig.tiny_config().replace(**{**dict(
+        name="lits", num_classes=3, backbone="P3D35",
+        backbone_stem_kernel=(5, 7, 7), intensity_norm="hu_window",
+        pad_shape=(64, 128, 128), mask_shape_override=(16, 16, 16),
+        mask_pool_size=(16, 16, 16), unet_dropout_rate=0.0,
+        detection_max_instances=3, wire_image_dtype="int8",
+        wire_int8_scale=127.0, fast_unmold=True), **overrides})
+    params = weights.init_params(cfg, seed=0)
+    params["classifier"]["cls"]["b"] = torch.tensor([0.0, 3.0])
+    return Detector(cfg, params, device=device)
+
+
+def _hu_volumes(shapes, seed=5):
+    rng = np.random.default_rng(seed)
+    vols = []
+    for shape in shapes:
+        v = (300.0 + 40.0 * rng.normal(size=shape)).astype(np.float32)
+        h, w, d = shape
+        v[h // 5:3 * h // 5, w // 4:3 * w // 4, d // 5:7 * d // 10] = -150.0
+        vols.append(v)
+    return vols
+
+
+def test_lits_pinned_mold_and_window_match_the_cpu(cuda):
+    """The LiTS slab pipeline and the per-request window, both from reused
+    page-locked buffers: four volumes of different shapes in a row, molded
+    before the last one's upload is read, land on the card as the CPU
+    mold writes them."""
+    det = _tiny_lits_detector(cuda, wire_slabs=3)
+    cpu = _tiny_lits_detector("cpu", wire_slabs=3)
+    assert det._pipelined_lits and len(det._slab_ranges()) == 3
+    vols = _hu_volumes([(100, 110, 50), (140, 90, 80), (64, 64, 32),
+                        (90, 100, 70)])
+    molded = [det.mold(v) for v in vols]
+    wins = [det._device_window(w) for _, w, _ in molded]
+    for v, (wire, window, _), win in zip(vols, molded, wins):
+        cwire, cwindow, _ = cpu.mold(v)
+        assert torch.equal(wire.cpu(), cwire)
+        np.testing.assert_array_equal(window, cwindow)
+        assert torch.equal(win.cpu(), torch.from_numpy(cwindow))
+
+
+def test_lits_detector_card_matches_cpu(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = _tiny_lits_detector(cuda)
+    vol = _hu_volumes([(100, 110, 50)])[0]
+    before = k1.launches
+    got = det.detect(vol)
+    assert k1.launches == before + 2
+    want = _tiny_lits_detector("cpu").detect(vol)
+    assert len(want["scores"]) >= 2
+    assert got["rois"].shape == want["rois"].shape
+    assert np.abs(got["rois"] - want["rois"]).max(initial=0) <= 1
+    assert got["mask"].shape == vol.shape
+    assert float((got["mask"] == want["mask"]).mean()) >= 0.99

@@ -241,3 +241,124 @@ def test_libraries_are_loaded_apart():
     assert port._name != jax_lib._name
     addr = ctypes.cast(port.mold_resize_q8, ctypes.c_void_p).value
     assert addr != ctypes.cast(jax_lib.mold_resize_q8, ctypes.c_void_p).value
+
+
+# LiTS: (source [H, W, D], pad (H, W, D), molded [D, H, W]): smaller than
+# the pad on every axis; deeper than the pad (offset 0, the extra slices
+# cropped); odd sizes and odd offsets
+LITS = [((50, 60, 30), (64, 72, 48), (32, 48, 48)),
+        ((50, 44, 90), (64, 64, 80), (35, 40, 24)),
+        ((37, 53, 21), (61, 66, 43), (21, 33, 27))]
+LITS_IDS = ["inside_pad", "deeper_than_pad", "odd"]
+HU = (300.0, -300.0)
+
+
+def _hu_source(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    vol = rng.normal(0.0, 250.0, size=shape).astype(np.float32)
+    h, w, d = shape
+    vol[h // 4:3 * h // 4, w // 4:3 * w // 4, d // 4:3 * d // 4] = -150.0
+    return vol
+
+
+def _offsets(src_shape, pad):
+    return tuple(max(0, (p - s) // 2) for s, p in zip(src_shape, pad))
+
+
+@pytest.mark.parametrize("src_shape,pad,out_shape", LITS, ids=LITS_IDS)
+def test_lits_mold_matches_jax(src_shape, pad, out_shape):
+    src = _hu_source(src_shape)
+    off = _offsets(src_shape, pad)
+    got = native.lits_mold(src, pad, out_shape, off, HU)
+    assert got.shape == out_shape and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        got, jnative.lits_mold(src, pad, out_shape, off, HU))
+    assert 0.0 <= got.min() and got.max() <= 1.0
+
+
+@pytest.mark.parametrize("n_slabs", [1, 3, 4])
+@pytest.mark.parametrize("src_shape,pad,out_shape", LITS, ids=LITS_IDS)
+def test_lits_mold_slab_q8_matches_jax(src_shape, pad, out_shape, n_slabs):
+    """Every slab of the Detector's partition, written into a view of one
+    volume, against the JAX slabs; together they are the one-pass mold
+    x127 truncated."""
+    src = _hu_source(src_shape)
+    off = _offsets(src_shape, pad)
+    d = out_shape[0]
+    zs = -(-d // n_slabs)
+    ranges = [(z, min(zs, d - z)) for z in range(0, d, zs)]
+    assert sum(zc for _, zc in ranges) == d and len(ranges) == n_slabs
+    wire = np.full(out_shape, 99, np.int8)
+    for z, zc in ranges:
+        view = wire[z:z + zc]
+        assert native.lits_mold_slab_q8(src, pad, out_shape, off, z, zc, HU,
+                                        127.0, out=view) is view
+        np.testing.assert_array_equal(
+            view, jnative.lits_mold_slab_q8(src, pad, out_shape, off, z, zc,
+                                            HU, 127.0))
+    ref = (native.lits_mold(src, pad, out_shape, off, HU) * 127.0
+           ).astype(np.int8)
+    np.testing.assert_array_equal(wire, ref)
+
+
+def test_lits_mold_checks_its_arguments():
+    src = _hu_source((20, 18, 10))
+    with pytest.raises(ValueError, match="inside depth"):
+        native.lits_mold_slab_q8(src, (24, 24, 16), (8, 8, 8), (2, 3, 3), 6,
+                                 3, HU, 127.0)
+    with pytest.raises(ValueError, match="out must be"):
+        native.lits_mold_slab_q8(src, (24, 24, 16), (8, 8, 8), (2, 3, 3), 0,
+                                 2, HU, 127.0,
+                                 out=np.zeros((2, 8, 8), np.int16))
+    with pytest.raises(ValueError, match="C-contiguous float32"):
+        native.lits_mold_slab_q8(src.astype(np.float64), (24, 24, 16),
+                                 (8, 8, 8), (2, 3, 3), 0, 2, HU, 127.0)
+    with pytest.raises(ValueError, match="centre-pad"):
+        native.lits_mold(src, (24, 24, 16), (8, 8, 8), (2, 3, 16), HU)
+
+
+def _label_maps(rng):
+    """(labels [Dm, Hm, Wm], mz, my, mx): upsampling runs, as the LiTS
+    unmold makes, and random non-monotone maps."""
+    lab = rng.integers(0, 3, size=(24, 40, 40), dtype=np.int8)
+    return lab, [
+        (np.repeat(np.arange(24), 3)[:50], np.repeat(np.arange(40), 2)[:64],
+         np.repeat(np.arange(40), 2)[:64]),
+        (rng.integers(0, 24, 50), rng.integers(0, 40, 64),
+         rng.integers(0, 40, 64))]
+
+
+def test_unmold_nearest_labels_matches_jax():
+    rng = np.random.default_rng(7)
+    lab, maps = _label_maps(rng)
+    for mz, my, mx in maps:
+        got = native.unmold_nearest_labels(lab, mz, my, mx)
+        assert got.shape == (64, 64, 50) and got.dtype == np.int16
+        np.testing.assert_array_equal(
+            got, jnative.unmold_nearest_labels(lab, mz, my, mx))
+        ref = np.take(np.take(np.take(lab, mz, 0), my, 1), mx, 2)
+        np.testing.assert_array_equal(got, ref.transpose(1, 2, 0))
+
+
+@pytest.mark.parametrize("axis,value", [(0, 24), (1, 40), (2, -1), (2, 4000)],
+                         ids=["mz_past_depth", "my_past_height",
+                              "mx_negative", "mx_far_past_width"])
+def test_unmold_nearest_labels_guard(axis, value, monkeypatch):
+    """An index map that steps outside the molded volume is refused before
+    the C call (it would read past the label buffer); the C function,
+    handed the same map directly, writes nothing."""
+    rng = np.random.default_rng(9)
+    lab, maps = _label_maps(rng)
+    maps = [np.array(m, np.int32) for m in maps[0]]
+    maps[axis][len(maps[axis]) // 2] = value
+    lib = native.library()
+    with monkeypatch.context() as m:
+        m.setattr(native, "library", lambda: pytest.fail("called the C op"))
+        with pytest.raises(ValueError, match="outside the molded axis"):
+            native.unmold_nearest_labels(lab, *maps)
+    mz, my, mx = maps
+    sentinel = 0x5A5A
+    out = np.full((my.size, mx.size, mz.size), sentinel, np.int16)
+    lib.unmold_nearest_i16(lab, *lab.shape, mz, my, mx, out, my.size,
+                           mx.size, mz.size)
+    assert np.all(out == sentinel), "wrote with an out-of-range map"

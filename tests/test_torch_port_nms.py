@@ -335,7 +335,7 @@ _LAYOUT_N = (1, 63, 64, 65, 127, 128, 129, 1000, 1024, 1025, 4096)
 
 
 @pytest.mark.parametrize("n,k,thr", [
-    (n, k, thr) for n in _LAYOUT_N for k in sorted({1, 64, n})
+    (n, k, thr) for n in _LAYOUT_N for k in sorted({1, 10, 50, 64, n})
     for thr in (0.3, 0.7)])
 def test_nms_kernel_layout_emulation_matches_plain(n, k, thr):
     """The kernel's own maps (tile per block, pairs per warp and lane,
