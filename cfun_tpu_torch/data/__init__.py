@@ -1,1 +1,2 @@
-"""Host-side (NumPy) molding and resampling of the port."""
+"""Host-side data of the port (NumPy): NIfTI IO, datasets, LiTS
+preprocessing, molding and resampling."""

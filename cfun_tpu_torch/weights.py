@@ -26,6 +26,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from cfun_tpu_torch.models.p3d import BACKBONE_DEPTHS
+
 _BN = ("scale", "bias", "mean", "var")
 _UNET = ("c1_1", "c1_2", "c1_lrelu_conv", "c2_down", "c2_conv", "c3_down",
          "c3_conv", "c4_down", "c4_conv", "c5_down", "c5_conv",
@@ -34,17 +36,24 @@ _UNET = ("c1_1", "c1_2", "c1_lrelu_conv", "c2_down", "c2_conv", "c3_down",
          "l3_up_conv", "l4_conv", "l4_out", "ds2", "ds3", "out_upscale")
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _leaves(tree, prefix: str = "") -> Dict[str, object]:
+    """Leaves of a nested dict / list tree (arrays or tensors, as they
+    are) by '/'-joined tree path."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
-        return {prefix: np.asarray(tree)}
+        return {prefix: tree}
     flat = {}
     for k, v in items:
-        flat.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        flat.update(_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
     return flat
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    """:func:`_leaves` as numpy arrays."""
+    return {k: np.asarray(v) for k, v in _leaves(tree).items()}
 
 
 def _unflatten(flat: Dict[str, object]):
@@ -91,7 +100,7 @@ def layout(cfg) -> Dict[str, Tuple[int, ...]]:
          ch0)
     bn("backbone/stem_bn", ch0)
     c_in = ch0
-    depths = {"P3D19": (2, 3), "P3D35": (4, 5)}[cfg.backbone]
+    depths = BACKBONE_DEPTHS[cfg.backbone]
     for stage, (planes, depth) in enumerate(zip((ch0, ch1), depths)):
         for b in range(depth):
             p = f"backbone/c{stage + 2}/{b}"
@@ -192,7 +201,14 @@ def params_from_numpy(tree, cfg) -> dict:
     (float32 CPU tensors, PyTorch layouts).  Raises on a leaf the port
     does not use, on a parameter the tree lacks and on a shape that is
     not ``cfg``'s."""
-    flat = _flatten(tree)
+    return checked_tree({k: _convert(k, v)
+                         for k, v in _leaves(tree).items()}, cfg)
+
+
+def checked_tree(flat: Dict[str, torch.Tensor], cfg) -> dict:
+    """A port parameter tree from its leaves by tree path, in the port's
+    layouts.  Raises on a leaf the port does not use, on a parameter
+    missing and on a shape that is not ``cfg``'s."""
     want = layout(cfg)
     missing = sorted(set(want) - set(flat))
     unused = sorted(set(flat) - set(want))
@@ -200,13 +216,12 @@ def params_from_numpy(tree, cfg) -> dict:
         raise ValueError(f"parameter tree does not match the port's graph: "
                          f"missing {missing[:8]} ({len(missing)}), "
                          f"unused {unused[:8]} ({len(unused)})")
-    params = {k: _convert(k, flat[k]) for k in want}
-    wrong = [f"{k} {tuple(v.shape)} != {want[k]}" for k, v in params.items()
+    wrong = [f"{k} {tuple(v.shape)} != {want[k]}" for k, v in flat.items()
              if tuple(v.shape) != want[k]]
     if wrong:
         raise ValueError(f"parameter shapes do not match the config: "
                          f"{wrong[:8]} ({len(wrong)})")
-    return _unflatten(params)
+    return _unflatten({k: flat[k] for k in want})
 
 
 def load_npz(path: str, cfg) -> Tuple[dict, dict]:

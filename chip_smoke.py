@@ -10,9 +10,9 @@ weights/heart_synth_ft.npz, weights/lits_synth.npz); ``heart`` needs the
 first two, ``lits`` the third.  A missing checkpoint is an error (exit 1).
 
 Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
-(shared: env build k1 k2; heart: serve serve_fused serve_ft; LiTS:
-serve_lits serve_lits_fused; then stream k2_served profile small, each on
-the families that ran):
+(shared: env build k1 k2; heart: serve serve_fused serve_ft cli_heart;
+LiTS: serve_lits serve_lits_fused cli_lits; then stream k2_served profile
+small, each on the families that ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -56,6 +56,21 @@ the families that ran):
           (1e-5 of the logits' largest magnitude, labels >= 99.9%), and
           the dense U-Net with the phase up-convs against the explicit
           ones (2e-4 of the logits' largest magnitude, labels >= 99.9%)
+  cli_heart  the heart CLI (cfun_tpu_torch.cli.heart_main.main, in this
+          process, in a temporary directory) on the JAX package's
+          held-out heart set (SyntheticDataset n=12, seed 3000,
+          144x144x96, written as float32 .nii.gz with a dataset.json)
+          with weights/heart_synth.npz: 'test' (K1 twice a volume at the
+          served shapes and no call of its plain version, each export
+          equal to Detector.detect's mask, Dice from the exports >= the
+          JAX package's recorded 0.6691 - 0.03, box IoU beside its
+          0.8875), 'submit' (exports equal test's), 'test --exact' (its
+          Dice mean within 0.01 of the fast path's; the per-class gaps
+          taken apart into the wire's and the unmold's through
+          Detector.detect) and 'test --limit 1 --trace' (the trace file
+          names K1's kernel); each volume's load / detect (mold, device,
+          unmold) / metrics / save ms, submit's sustained s a volume, the
+          bytes read and written
   serve_lits  LiTS inference at full width (256x320x320, P3D35,
           lits_inference_config('finetune'): FPN 160, U-Net base 32 at
           batch 10, the device overlap paste, the 2-bit wire) with
@@ -71,6 +86,16 @@ the families that ran):
           detections, K2 8 times a request at the shapes of K2_SERVED_LITS
           (batch 10), and the fused U-Net as close to dense f32 as dense
           bf16 on one served crop
+  cli_lits  the LiTS CLI (cfun_tpu_torch.cli.lits_main.main) on the
+          three held-out volumes of serve_lits written as the .npy cache:
+          'test --limit 0' (every volume scored, K1 twice a volume, no
+          plain NMS, exports equal to Detector.detect's masks, Dice from
+          the exports at serve_lits' floors; the parts of one export's
+          save), 'submit' of one test volume whose raw scan is
+          512x512x128 (the export has that geometry and is the test mask
+          resized there), and 'test --exact' on liver_0 (the host overlap
+          unmold of the probability stacks), its Dice beside the fast
+          path's
   stream  Detector.detect_stream over four full-width heart volumes on the
           dense path: the same results as serial detect, in order, the
           sustained ms a volume beside the serial ms, the launch counts
@@ -94,9 +119,10 @@ the families that ran):
           versions, float32, TF32 off) on the tiny config, and on a tiny
           LiTS config
 
-Each served phase (and 'stream') sets every kernel's launch count and its
-record of launch shapes to 0 just before its requests and reads them just
-after.
+Each served phase (and 'stream', and each CLI command) sets every
+kernel's launch count and its record of launch shapes to 0 just before its
+requests and reads them just after; the CLI paths are in the kernels
+line's launches_by_path.
 
 Then a ``{"serving": ...}`` JSON line, one with the kernels, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -111,8 +137,10 @@ import contextlib
 import faulthandler
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -232,6 +260,13 @@ LITS_JAX_DICE = (0.975, 0.9597)
 CHECKPOINTS = {"heart": ("weights/heart_synth.npz",
                          "weights/heart_synth_ft.npz"),
                "lits": ("weights/lits_synth.npz",)}
+# CLI runs: the JAX package's held-out heart evaluation set
+# (benchmarks/heart_synth_eval.py: SyntheticDataset(n=12, seed=3000,
+# host_shape=(144, 144, 96), n_fg=7)) and its recorded numbers for
+# weights/heart_synth.npz at stage 'beginning'
+# (benchmarks/heart_synth_eval.json)
+HEART_EVAL = dict(n=12, seed=3000, host_shape=(144, 144, 96), n_fg=7)
+HEART_JAX_EVAL = {"dice_mean": 0.6691, "box_iou_mean": 0.8875}
 # (B, C_in, C_out, D, H, W, pre_lrelu): D = 1, B = 2, sizes and channel
 # counts that are not multiples of the kernel's tiles and chunks; then
 # C_in of 8, 20, 24 and 25 (around the pad to 8 and the 32-channel
@@ -985,6 +1020,493 @@ def k1_request(sites):
                         "bound_ms")}
 
 
+@contextlib.contextmanager
+def cli_probe():
+    """Record what a CLI command does while the block runs: each volume
+    file read ('load': ``nifti.load`` and ``np.load`` of a .npy), each
+    ``Detector.detect`` with its ``last_timings``, each metric
+    ('metrics') and each file written ('save': ``nifti.save``), as
+    (stage, start s, end s, detail); and every call of K1's plain
+    version.  Yields (records, plain-NMS calls)."""
+    import numpy as np
+
+    from cfun_tpu_torch.data import nifti
+    from cfun_tpu_torch.inference import pipeline
+    from cfun_tpu_torch.ops import sorted_nms as k1
+    from cfun_tpu_torch.utils import metrics
+
+    records, plain = [], []
+
+    def timed(stage, fn, keep=None, detail=None):
+        def run(*args, **kw):
+            start = time.perf_counter()
+            out = fn(*args, **kw)
+            if keep is None or keep(*args):
+                records.append((stage, start, time.perf_counter(),
+                                detail(args) if detail else None))
+            return out
+        return run
+
+    def counted(*args, **kw):
+        plain.append(args[0].shape[0])
+        return orig_plain(*args, **kw)
+
+    orig_plain = k1.sorted_nms_reference
+    patches = [
+        (nifti, "load", timed("load", nifti.load)),
+        (np, "load", timed("load", np.load,
+                           keep=lambda path, *a: str(path).endswith(".npy"))),
+        (nifti, "save", timed("save", nifti.save)),
+        (metrics, "per_class_mask_iou",
+         timed("metrics", metrics.per_class_mask_iou)),
+        (metrics, "per_class_dice", timed("metrics", metrics.per_class_dice)),
+        (pipeline.Detector, "detect",
+         timed("detect", pipeline.Detector.detect,
+               detail=lambda args: dict(args[0].last_timings))),
+        (k1, "sorted_nms_reference", counted)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield records, plain
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def cli_volumes(records):
+    """Per volume of a ``test`` run, from ``cli_probe``'s records: the ms
+    of 'load', 'detect' (and its 'mold' / 'device' / 'unmold'),
+    'metrics' and 'save', and the wall ms from the volume's first read to
+    the end of its last stage.  A volume's reads come before its detect;
+    its metrics and saves after."""
+    starts = sorted(start for stage, start, _, _ in records
+                    if stage == "detect")
+    vols = [{"load": 0.0, "detect": 0.0, "metrics": 0.0, "save": 0.0,
+             "first": None, "last": 0.0} for _ in starts]
+    for stage, start, end, detail in records:
+        n_before = sum(s < start for s in starts)
+        i = n_before if stage == "load" else n_before - 1
+        if stage == "detect":
+            i = starts.index(start)
+            vols[i].update({k: v * 1e3 for k, v in detail.items()
+                            if k != "total"})
+        v = vols[i]
+        v[stage] += (end - start) * 1e3
+        v["first"] = start if v["first"] is None else min(v["first"], start)
+        v["last"] = max(v["last"], end)
+    for v in vols:
+        v["wall"] = (v.pop("last") - v.pop("first")) * 1e3
+    return vols
+
+
+def print_cli_volumes(label, vols):
+    for i, v in enumerate(vols):
+        print(f"{label} volume {i}: load {v['load']:.3f} ms, detect "
+              f"{v['detect']:.3f} ms (mold {v['mold']:.3f} device "
+              f"{v['device']:.3f} unmold {v['unmold']:.3f}), metrics "
+              f"{v['metrics']:.3f} ms, save {v['save']:.3f} ms; wall "
+              f"{v['wall']:.3f} ms", flush=True)
+
+
+def run_cli(label, main_fn, argv, cwd, counters):
+    """``main_fn(argv)`` in ``cwd`` with every kernel launch count and
+    launch-shape record set to 0 just before and read just after, under
+    ``cli_probe``.  Returns (its return value, {kernel: launches},
+    {kernel: {shape: launches}}, probe records, plain-NMS calls, wall
+    s)."""
+    os.makedirs(cwd, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with cli_probe() as (records, plain):
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            out = main_fn(argv)
+            wall = time.perf_counter() - t0
+            launches = {name: mod.launches for name, mod in counters.items()}
+            shapes = {name: dict(mod.launch_shapes)
+                      for name, mod in counters.items()}
+    finally:
+        os.chdir(here)
+    print(f"{label}: {' '.join(argv)}: {wall:.3f} s, launches {launches} "
+          f"by shape {shapes}, plain NMS calls {len(plain)}", flush=True)
+    return out, launches, shapes, records, plain, wall
+
+
+def dir_bytes(path):
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(path) for n in names)
+
+
+def cli_heart_phase(tmp, counters, k1_per_request):
+    """``python -m cfun_tpu_torch.cli.heart_main`` in this process on the
+    JAX package's held-out heart set, written as float32 .nii.gz with a
+    manifest under ``tmp``: ``test`` (K1 twice a volume at the served
+    shapes ``k1_per_request``, no plain NMS; each export equal to
+    ``Detector.detect``'s mask; Dice and box IoU against the JAX
+    package's recorded numbers), ``submit`` (its exports equal
+    ``test``'s), ``test --exact`` (its Dice mean within 0.01 of the fast
+    path's; the per-class gaps taken apart into the wire's and the
+    unmold's) and ``test --limit 1 --trace`` (the trace names K1's
+    kernel).  Returns ({path: {kernel: launches}}, stats)."""
+    import glob
+
+    import numpy as np
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.cli import heart_main
+    from cfun_tpu_torch.cli.lits_main import _box_iou, _gt_extended_box_yxz
+    from cfun_tpu_torch.data import nifti
+    from cfun_tpu_torch.data.datasets import SyntheticDataset
+    from cfun_tpu_torch.inference import Detector
+    from cfun_tpu_torch.utils import checkpoint
+    from cfun_tpu_torch.utils.metrics import per_class_dice
+
+    cfg = port_config.heart_inference_config("beginning")
+    held = SyntheticDataset(cfg, **HEART_EVAL)
+    n = held.num_images
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    items = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        item = {"image": f"img_{i:02d}.nii.gz", "label": f"lbl_{i:02d}.nii.gz"}
+        # float32: the volumes are z-scored, which int16 would erase
+        nifti.save(os.path.join(data, item["image"]),
+                   held.load_image(i)[..., 0].astype(np.float32), np.eye(4))
+        nifti.save(os.path.join(data, item["label"]), held.load_mask(i),
+                   np.eye(4))
+        items.append(item)
+    with open(os.path.join(data, "dataset.json"), "w") as f:
+        json.dump({"train_and_test": items}, f)
+    read_bytes = dir_bytes(data)
+    print(f"cli_heart: wrote the {n} held-out {HEART_EVAL['host_shape']} "
+          f"volumes and labels ({read_bytes} B) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    wpath = os.path.join(ROOT, "weights", "heart_synth.npz")
+    common = ["--weights", wpath, "--stage", "beginning", "--data", data]
+    by_path, stats = {}, {"volumes": n, "read_bytes": read_bytes}
+
+    def run(path, argv):
+        out, launches, shapes, records, plain, wall = run_cli(
+            f"cli_heart {path}", heart_main.main, argv,
+            os.path.join(tmp, path), counters)
+        n_run = 1 if path == "trace" else n
+        by_path[f"cli_heart_{path}"] = launches
+        check(launches["sorted_nms"] == 2 * n_run and
+              shapes["sorted_nms"] == {s: c * n_run for s, c
+                                       in k1_per_request.items()},
+              f"cli_heart {path}: K1 twice a volume at the served shapes "
+              f"{k1_per_request}: {launches} {shapes}")
+        check(launches["fused_conv3d"] == 0, "the dense U-Net: no K2")
+        check(plain == [], f"cli_heart {path}: no plain NMS call ({plain})")
+        stats[f"{path}_s"] = wall
+        return out, records
+
+    (ious, dices), records = run("test", ["test", *common, "--limit", str(n),
+                                          "--save", "true"])
+    vols = cli_volumes(records)
+    check(len(vols) == n, f"cli_heart test: {len(vols)} volumes detected")
+    print_cli_volumes("cli_heart test", vols)
+    out_dir = os.path.join(tmp, "test", "results")
+    stats.update(test_volumes_ms=vols, test_written_bytes=dir_bytes(out_dir))
+
+    # the exports against Detector.detect on the same card and weights
+    params, _ = checkpoint.load_any(wpath, cfg,
+                                    weights.init_params(cfg, seed=0))
+    det = Detector(cfg, params)
+    files = {name.split("_", 1)[1]: name for name in os.listdir(out_dir)}
+    check(sorted(files) == [it["image"] for it in items],
+          f"cli_heart test: one export a volume: {sorted(files)}")
+    masks, file_dice, box_ious, fast_rois = [], [], [], []
+    for i, item in enumerate(items):
+        saved, _ = nifti.load(os.path.join(out_dir, files[item["image"]]))
+        image, _ = nifti.load(os.path.join(data, item["image"]))
+        res = det.detect(image)
+        check(saved.dtype == np.int32 and np.array_equal(saved, res["mask"]),
+              f"cli_heart: the export of {item['image']} is "
+              f"Detector.detect's mask")
+        label = held.load_mask(i)
+        file_dice.append(per_class_dice(label, saved, cfg.num_classes))
+        rois = np.clip(res["rois"], 0, None).astype(np.int64)
+        if len(rois):
+            box_ious.append(_box_iou(_gt_extended_box_yxz(label).astype(
+                np.float64), rois[0].astype(np.float64)))
+        masks.append(saved)
+        fast_rois.append(res["rois"])
+    file_dice = np.array(file_dice)
+    check(np.array_equal(file_dice, dices),
+          "cli_heart: the CLI's Dice is the exported files'")
+    dice_mean = float(file_dice.mean())
+    box_iou_mean = float(np.mean(box_ious))
+    print(f"cli_heart test: Dice per class "
+          f"{[round(float(v), 4) for v in file_dice.mean(axis=0)]} mean "
+          f"{dice_mean:.4f}, box IoU mean {box_iou_mean:.4f} ({len(box_ious)}"
+          f" detections); the JAX package's recorded dice_mean "
+          f"{HEART_JAX_EVAL['dice_mean']}, box_iou_mean "
+          f"{HEART_JAX_EVAL['box_iou_mean']}", flush=True)
+    check(dice_mean >= HEART_JAX_EVAL["dice_mean"] - 0.03,
+          f"cli_heart: Dice mean {dice_mean} >= "
+          f"{HEART_JAX_EVAL['dice_mean']} - 0.03")
+    stats.update(dice_per_class=file_dice.mean(axis=0).tolist(),
+                 dice_mean=dice_mean, box_iou_mean=box_iou_mean,
+                 jax_recorded=HEART_JAX_EVAL)
+
+    per_volume, records = run("submit", ["submit", *common, "--limit",
+                                         str(n)])
+    sub_dir = os.path.join(tmp, "submit", "results", "heart_submissions")
+    for item, mask in zip(items, masks):
+        got, _ = nifti.load(os.path.join(sub_dir, item["image"]))
+        check(np.array_equal(got, mask),
+              f"cli_heart submit: {item['image']} equals test's export")
+    stats.update(
+        submit_s_per_volume=per_volume,
+        submit_load_ms=[(e - s) * 1e3 for st, s, e, _ in records
+                        if st == "load"],
+        submit_save_ms=[(e - s) * 1e3 for st, s, e, _ in records
+                        if st == "save"],
+        submit_written_bytes=dir_bytes(sub_dir))
+    print(f"cli_heart submit: {per_volume:.3f} s/volume sustained over {n} "
+          f"volumes, equal to test's exports", flush=True)
+
+    (_, exact_dices), records = run("exact", [
+        "test", *common, "--limit", str(n), "--save", "false", "--exact"])
+    evols = cli_volumes(records)
+    print_cli_volumes("cli_heart exact", evols)
+    gap = exact_dices.mean(axis=0) - dices.mean(axis=0)
+    print(f"cli_heart exact: Dice per class "
+          f"{[round(float(v), 4) for v in exact_dices.mean(axis=0)]} mean "
+          f"{float(exact_dices.mean()):.4f} against the fast path's "
+          f"{dice_mean:.4f}; per-class gaps {np.round(gap, 4).tolist()}",
+          flush=True)
+    check(abs(float(exact_dices.mean()) - dice_mean) <= 0.01,
+          f"cli_heart: the Dice mean of --exact within 0.01 of the fast "
+          f"path's: {float(exact_dices.mean())} vs {dice_mean}")
+    stats.update(exact_volumes_ms=evols,
+                 exact_dice_per_class=exact_dices.mean(axis=0).tolist(),
+                 exact_gap_per_class=gap.tolist())
+
+    # where the per-class gaps come from: the wire (int8 + device z-score
+    # against bf16 + host z-score) and the unmold (device 2x upsample,
+    # argmax, nearest paste against the host's trilinear paste of the
+    # probabilities, then argmax) apart, through Detector.detect
+    variants = {"int8 wire, exact unmold": dict(fast_unmold=False),
+                "bf16 wire, fast unmold": dict(wire_image_dtype="bfloat16",
+                                               device_normalize=False),
+                "bf16 wire, exact unmold (--exact)": dict(
+                    wire_image_dtype="bfloat16", device_normalize=False,
+                    fast_unmold=False)}
+    stats["exact_decomposition"] = {}
+    for name, overrides in variants.items():
+        vdet = Detector(cfg.replace(**overrides), params)
+        vdice, same_boxes = [], 0
+        for i, item in enumerate(items):
+            image, _ = nifti.load(os.path.join(data, item["image"]))
+            res = vdet.detect(image)
+            vdice.append(per_class_dice(held.load_mask(i), res["mask"],
+                                        cfg.num_classes))
+            same_boxes += int(np.array_equal(res["rois"], fast_rois[i]))
+        vdice = np.array(vdice)
+        vgap = vdice.mean(axis=0) - dices.mean(axis=0)
+        print(f"cli_heart exact decomposition, {name}: Dice per class "
+              f"{np.round(vdice.mean(axis=0), 4).tolist()} mean "
+              f"{float(vdice.mean()):.4f}; gaps to the fast path "
+              f"{np.round(vgap, 4).tolist()}; boxes equal to the fast "
+              f"path's on {same_boxes} of {n} volumes", flush=True)
+        stats["exact_decomposition"][name] = {
+            "dice_per_class": vdice.mean(axis=0).tolist(),
+            "gap_per_class": vgap.tolist(), "same_boxes": same_boxes}
+        if "--exact" in name:
+            check(np.allclose(vdice, exact_dices, atol=1e-9),
+                  "cli_heart: Detector.detect in the --exact config gives "
+                  "the CLI's --exact Dice")
+        del vdet
+
+    trace_dir = os.path.join(tmp, "trace_out")
+    run("trace", ["test", *common, "--limit", "1", "--save", "false",
+                  "--trace", trace_dir])
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(traces) == 1, f"cli_heart --trace: one trace file {traces}")
+    with open(traces[0]) as f:
+        named = K1_KERNELS[0] in f.read()
+    check(named, f"cli_heart --trace: the trace names {K1_KERNELS[0]}")
+    stats["trace_bytes"] = os.path.getsize(traces[0])
+    print(f"cli_heart trace: {os.path.basename(traces[0])} "
+          f"({stats['trace_bytes']} B) names {K1_KERNELS[0]}", flush=True)
+    det.close()
+    return by_path, stats
+
+
+def cli_lits_phase(tmp, counters, k1_per_request, held):
+    """``python -m cfun_tpu_torch.cli.lits_main`` in this process on the
+    held-out LiTS volumes ``held`` ([(raw HU volume, labels)]) written in
+    the preprocessed cache layout under ``tmp``: ``test --limit 0``
+    (every volume scored, K1 twice a volume at the served shapes, no
+    plain NMS, each export equal to ``Detector.detect``'s mask, the
+    exported Dice at the ``serve_lits`` floors), ``submit`` of one test
+    volume whose raw scan has another geometry (restored), and ``test
+    --exact`` on ``liver_0``.  Returns ({path: {kernel: launches}},
+    stats)."""
+    import gzip
+
+    import numpy as np
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.cli import lits_main
+    from cfun_tpu_torch.data import nifti
+    from cfun_tpu_torch.data.resample import resize
+    from cfun_tpu_torch.inference import Detector
+    from cfun_tpu_torch.utils import checkpoint
+    from cfun_tpu_torch.utils.metrics import per_class_dice
+
+    cfg = port_config.lits_inference_config("finetune")
+    n = len(held)
+    cache, one = os.path.join(tmp, "cache"), os.path.join(tmp, "cache_0")
+    for root in (cache, one):
+        for sub in ("image_np", "label_np"):
+            os.makedirs(os.path.join(root, sub))
+    for sub in ("image_test_np", "imagesTs"):
+        os.makedirs(os.path.join(cache, sub))
+    t0 = time.perf_counter()
+    for i, (vol, lab) in enumerate(held):
+        np.save(os.path.join(cache, "image_np", f"liver_{i}.npy"),
+                vol.astype(np.float32))
+        np.save(os.path.join(cache, "label_np", f"liver_label_{i}.npy"),
+                lab.astype(np.int8))
+    for sub, name in (("image_np", "liver_0.npy"),
+                      ("label_np", "liver_label_0.npy")):
+        os.symlink(os.path.join(cache, sub, name),
+                   os.path.join(one, sub, name))
+    read_bytes = dir_bytes(cache)
+    print(f"cli_lits: wrote the {n} held-out volumes and labels as the "
+          f"preprocessed cache ({read_bytes} B) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    wpath = os.path.join(ROOT, "weights", "lits_synth.npz")
+    common = ["--weights", wpath, "--stage", "finetune"]
+    by_path, stats = {}, {"volumes": n, "read_bytes": read_bytes}
+
+    def run(path, argv, n_run):
+        out, launches, shapes, records, plain, wall = run_cli(
+            f"cli_lits {path}", lits_main.main, argv,
+            os.path.join(tmp, path), counters)
+        by_path[f"cli_lits_{path}"] = launches
+        check(launches["sorted_nms"] == 2 * n_run and
+              shapes["sorted_nms"] == {s: c * n_run for s, c
+                                       in k1_per_request.items()},
+              f"cli_lits {path}: K1 twice a volume at the served shapes "
+              f"{k1_per_request}: {launches} {shapes}")
+        check(launches["fused_conv3d"] == 0, "the dense U-Net: no K2")
+        check(plain == [], f"cli_lits {path}: no plain NMS call ({plain})")
+        stats[f"{path}_s"] = wall
+        return out, records
+
+    (box_ious, ious), records = run("test", [
+        "test", *common, "--data", cache, "--limit", "0", "--save",
+        "true"], n)
+    vols = cli_volumes(records)
+    # run_test skips a volume whose detection raised: count what it scored
+    check(len(ious) == n and len(vols) == n,
+          f"cli_lits test: {len(ious)} volumes scored, {len(vols)} detected"
+          f", of {n}")
+    print_cli_volumes("cli_lits test", vols)
+    out_dir = os.path.join(tmp, "test", "results", "lits")
+    stats.update(test_volumes_ms=vols, test_written_bytes=dir_bytes(out_dir),
+                 box_ious=[float(v) for v in box_ious])
+
+    params, _ = checkpoint.load_any(wpath, cfg,
+                                    weights.init_params(cfg, seed=0))
+    det = Detector(cfg, params)
+    files = {name.split("_", 1)[1]: name for name in os.listdir(out_dir)}
+    check(sorted(files) == [f"liver_{i}.nii.gz" for i in range(n)],
+          f"cli_lits test: one export a volume: {sorted(files)}")
+    masks, file_dice = [], []
+    for i, (vol, lab) in enumerate(held):
+        saved, _ = nifti.load(os.path.join(out_dir,
+                                           files[f"liver_{i}.nii.gz"]))
+        res = det.detect(vol)
+        check(saved.dtype == np.uint8 and np.array_equal(saved, res["mask"]),
+              f"cli_lits: the export of liver_{i} is Detector.detect's mask")
+        file_dice.append(per_class_dice(lab, saved, cfg.num_classes))
+        masks.append(saved)
+    det.close()
+    del det
+    dice = np.array(file_dice).mean(axis=0)
+    print(f"cli_lits test: Dice (liver, tumour) per volume "
+          f"{np.round(file_dice, 4).tolist()}, mean {dice.tolist()}; box "
+          f"IoUs {box_ious}", flush=True)
+    check(dice[0] >= 0.95 and dice[1] >= 0.93,
+          f"cli_lits: mean Dice liver >= 0.95 and tumour >= 0.93: {dice}")
+    stats["dice"] = dice.tolist()
+    # the parts of one export's save as nifti.save does them on the CLI's
+    # C-ordered uint8 mask: the copy that lays the volume out x-fastest,
+    # gzip at level 1, the write
+    mask = np.ascontiguousarray(masks[0])
+    t0 = time.perf_counter()
+    payload = mask.transpose(2, 1, 0).tobytes()
+    t1 = time.perf_counter()
+    packed = gzip.compress(payload, compresslevel=1)
+    t2 = time.perf_counter()
+    with open(os.path.join(tmp, "save_probe.gz"), "wb") as f:
+        f.write(packed)
+    t3 = time.perf_counter()
+    stats["save_parts_ms"] = {"x_fastest_copy": (t1 - t0) * 1e3,
+                              "gzip_level_1": (t2 - t1) * 1e3,
+                              "write": (t3 - t2) * 1e3,
+                              "raw_bytes": len(payload),
+                              "gzip_bytes": len(packed)}
+    print(f"cli_lits save parts of one export: {stats['save_parts_ms']}",
+          flush=True)
+
+    # submit: one test volume whose raw scan has the LiTS scans' in-plane
+    # size and another depth and spacing
+    raw_shape = (512, 512, 128)
+    np.save(os.path.join(cache, "image_test_np", "liver_0.npy"),
+            held[0][0].astype(np.float32))
+    raw_path = os.path.join(cache, "imagesTs", "test-volume-0.nii.gz")
+    nifti.save(raw_path, resize(held[0][0], raw_shape, order=0)
+               .astype(np.int16), np.diag([0.7, 0.7, 2.5, 1.0]))
+    _, raw_affine = nifti.load(raw_path)
+    per_volume, records = run("submit", ["submit", *common, "--data",
+                                         cache], 1)
+    sub_path = os.path.join(tmp, "submit", "results", "submissions",
+                            "test-segmentation-0.nii")
+    got, affine = nifti.load(sub_path)
+    check(got.shape == raw_shape and np.array_equal(affine, raw_affine),
+          f"cli_lits submit: the raw geometry {got.shape}")
+    check(np.array_equal(got, resize(masks[0], raw_shape, order=0)),
+          "cli_lits submit: the test mask resized to the raw geometry")
+    stats.update(submit_s_per_volume=per_volume,
+                 submit_load_ms=[(e - s) * 1e3 for st, s, e, _ in records
+                                 if st == "load"],
+                 submit_save_ms=[(e - s) * 1e3 for st, s, e, _ in records
+                                 if st == "save"],
+                 submit_written_bytes=os.path.getsize(sub_path))
+    print(f"cli_lits submit: {per_volume:.3f} s/volume; "
+          f"test-segmentation-0.nii {got.shape} restored", flush=True)
+
+    (_, exact_ious), records = run("exact", [
+        "test", *common, "--data", one, "--limit", "0", "--save", "true",
+        "--exact"], 1)
+    check(len(exact_ious) == 1, "cli_lits exact: liver_0 scored")
+    evols = cli_volumes(records)
+    print_cli_volumes("cli_lits exact", evols)
+    edir = os.path.join(tmp, "exact", "results", "lits")
+    saved, _ = nifti.load(os.path.join(edir, os.listdir(edir)[0]))
+    exact_dice = per_class_dice(held[0][1], saved, cfg.num_classes)
+    agree = float((saved == masks[0]).mean())
+    print(f"cli_lits exact: liver_0 Dice (liver, tumour) "
+          f"{exact_dice.tolist()} against the fast path's "
+          f"{file_dice[0].tolist()}; labels agree {agree:.6f}", flush=True)
+    stats.update(exact_volumes_ms=evols, exact_dice=exact_dice.tolist(),
+                 exact_fast_dice=file_dice[0].tolist(),
+                 exact_label_agree=agree)
+    return by_path, stats
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1023,6 +1545,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     # by path: {kernel: launches}, request timings, device busy, peak bytes
     launches_by_path, request_ms, busy, peak = {}, {}, {}, {}
+    # by family: the CLI runs' per-volume stages, bytes, Dice
+    cli_stats = {}
     detectors = []
 
     with phase("env"):
@@ -1210,6 +1734,16 @@ def main() -> int:
                                     ftdet.params["mask"]["unet"], crop)
             del crop
 
+        with phase("cli_heart"):
+            tmp = tempfile.mkdtemp(prefix="cfun_cli_heart_")
+            try:
+                cli_launches, cli_stats["heart"] = cli_heart_phase(
+                    tmp, counters, {s: c // 3 for s, c in
+                                    served_shapes["sorted_nms"].items()})
+            finally:
+                shutil.rmtree(tmp)
+            launches_by_path.update(cli_launches)
+
     if lits:
         with phase("serve_lits"):
             lcfg = port_config.lits_inference_config("finetune")
@@ -1324,6 +1858,16 @@ def main() -> int:
                                        lfdet.params["mask"]["unet"], crop,
                                        "finetune")
             del crop
+
+        with phase("cli_lits"):
+            tmp = tempfile.mkdtemp(prefix="cfun_cli_lits_")
+            try:
+                cli_launches, cli_stats["lits"] = cli_lits_phase(
+                    tmp, counters, {s: c // nl for s, c in
+                                    lshapes["sorted_nms"].items()}, held)
+            finally:
+                shutil.rmtree(tmp)
+            launches_by_path.update(cli_launches)
 
     with phase("stream"):
         n_sync, sync_msgs, stream_stats = None, [], None
@@ -1579,6 +2123,7 @@ def main() -> int:
             lits_sync_messages=sync_msgs_lits,
             overlap_paste=paste, lits_wire_bytes=wire_up)
     serving["serving"]["small_label_agree"] = small_agree
+    serving["serving"]["cli"] = cli_stats
     print(json.dumps(serving), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)
