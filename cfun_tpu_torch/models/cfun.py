@@ -61,11 +61,12 @@ class TrunkOut(NamedTuple):
     rpn_deltas: torch.Tensor  # [B, A, 6]
 
 
-def apply_trunk(params: nn.Params, image: torch.Tensor,
-                cfg: Config) -> TrunkOut:
-    """image: [B, 1, D, H, W] molded volume."""
+def apply_trunk(params: nn.Params, image: torch.Tensor, cfg: Config,
+                remat: bool = False) -> TrunkOut:
+    """image: [B, 1, D, H, W] molded volume.  ``remat``: checkpoint each
+    backbone block (``models/p3d.py::apply_p3d``)."""
     dt = compute_dtype(cfg)
-    c2, c3 = apply_p3d(params["backbone"], image, dtype=dt)
+    c2, c3 = apply_p3d(params["backbone"], image, dtype=dt, remat=remat)
     p2, p3 = apply_fpn(params["fpn"], c2, c3, dtype=dt)
     l2, d2 = apply_rpn(params["rpn"], p2, cfg.anchor_stride, dtype=dt)
     l3, d3 = apply_rpn(params["rpn"], p3, cfg.anchor_stride, dtype=dt)
@@ -80,6 +81,9 @@ def propose(rpn_logits: torch.Tensor, rpn_deltas: torch.Tensor,
 
     rpn_logits/deltas: [A, 2] / [A, 6]; anchors: [A, 6] voxel coords.
     Returns (proposals [P, 6] normalized + zero-padded, valid [P] bool).
+    The NMS takes the boxes detached (its kernel has no backward, as
+    ``pallas_call`` has no JVP), so the proposals carry no gradient back to
+    the NMS; the train step detaches them too.
     """
     scores = torch.softmax(rpn_logits, dim=-1)[:, 1]
     deltas = rpn_deltas * device_constant(cfg.rpn_bbox_std, torch.float32,
@@ -92,7 +96,8 @@ def propose(rpn_logits: torch.Tensor, rpn_deltas: torch.Tensor,
                                               boxes.dtype, boxes.device))
 
     valid = torch.ones(pre, dtype=torch.bool, device=boxes.device)
-    idx, keep = nms(boxes, valid, cfg.rpn_nms_threshold, proposal_count)
+    idx, keep = nms(boxes.detach(), valid, cfg.rpn_nms_threshold,
+                    proposal_count)
     proposals = nms_gather(boxes, idx, keep)
     return normalize_boxes(proposals, cfg.image_shape), keep
 

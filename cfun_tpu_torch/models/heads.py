@@ -9,7 +9,7 @@ runs the Modified 3D U-Net over a crop of the raw 1-channel input volume.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -37,20 +37,32 @@ def apply_classifier(params: nn.Params, pooled: torch.Tensor,
 
 
 def apply_mask_head(params: nn.Params, crops: torch.Tensor, *, stage: str,
-                    dtype=torch.float32, fused: bool = False) -> torch.Tensor:
+                    dropout_rate: float = 0.0,
+                    dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                    dtype=torch.float32, fused: bool = False,
+                    head_impl: str = "phase",
+                    up_impl: str = "phase") -> torch.Tensor:
     """crops: [N, 1, D, H, W] raw-image crops -> logits
     [N, num_classes, D', H', W'] in ``dtype`` (D' = 2D at 'finetune').
 
-    ``fused=True`` (``Config.pallas_unet``): the fused U-Net
-    (``models/unet3d.py::apply_unet_fused``), which computes in bfloat16
-    and takes the phase head.  Otherwise the dense U-Net with the
-    phase-decomposed finetune head and decoder up-convs, the JAX package's
-    inference forms."""
+    ``fused=True`` (``Config.pallas_unet``, inference only): the fused
+    U-Net (``models/unet3d.py::apply_unet_fused``), which computes in
+    bfloat16, takes the phase head and has no dropout.  Otherwise the
+    dense U-Net with ``dropout_rate`` and the five sites' keep masks
+    ``dropout_masks``; ``head_impl`` / ``up_impl`` pick the finetune
+    head's and the decoder up-convs' forms: 'phase' (the inference forms,
+    the default) or 'explicit' (the train step's)."""
     if fused:
+        # the fused kernel has no dropout path: refuse rather than change
+        # what the graph computes
+        if dropout_rate and dropout_masks is not None:
+            raise ValueError("fused=True has no dropout path (inference "
+                             "only); got dropout_rate > 0 with masks")
         if dtype != torch.bfloat16:
             raise ValueError(f"fused=True computes in bfloat16; config "
                              f"compute dtype is {dtype}")
         return apply_unet_fused(params["unet"], crops, stage=stage,
                                 dtype=dtype)
-    return apply_unet(params["unet"], crops, stage=stage, dtype=dtype,
-                      head_impl="phase", up_impl="phase")
+    return apply_unet(params["unet"], crops, stage=stage,
+                      dropout_rate=dropout_rate, dropout_masks=dropout_masks,
+                      dtype=dtype, head_impl=head_impl, up_impl=up_impl)

@@ -10,9 +10,11 @@ downsample on the residual path.  BatchNorm is frozen.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cfun_tpu_torch import nn
 
@@ -51,9 +53,13 @@ def _apply_bottleneck(p: nn.Params, x: torch.Tensor, *, st: str,
     return nn.relu(out + residual)
 
 
-def apply_p3d(params: nn.Params, x: torch.Tensor,
-              dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, C, D, H, W] molded volume -> (c2 at 1/8, c3 at 1/16)."""
+def apply_p3d(params: nn.Params, x: torch.Tensor, dtype=torch.float32,
+              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, C, D, H, W] molded volume -> (c2 at 1/8, c3 at 1/16).
+
+    ``remat=True`` checkpoints each bottleneck block
+    (``torch.utils.checkpoint``): the backward pass recomputes one block's
+    activations at a time instead of holding the whole stack's."""
     out = nn.conv3d(params["stem_conv"], x, stride=2, dtype=dtype)
     out = nn.relu(nn.frozen_bn(params["stem_bn"], out))
     out = nn.max_pool(out, 2, 2)
@@ -61,8 +67,12 @@ def apply_p3d(params: nn.Params, x: torch.Tensor,
     feats = []
     for stage in (2, 3):
         for b, bp in enumerate(params[f"c{stage}"]):
-            out = _apply_bottleneck(bp, out, st="ABC"[b % 3],
-                                    expand=(b == 0),
-                                    stride=2 if b == 0 else 1, dtype=dtype)
+            block = functools.partial(_apply_bottleneck, st="ABC"[b % 3],
+                                      expand=(b == 0),
+                                      stride=2 if b == 0 else 1, dtype=dtype)
+            if remat:
+                out = checkpoint(block, bp, out, use_reentrant=False)
+            else:
+                out = block(bp, out)
         feats.append(out)
     return feats[0], feats[1]

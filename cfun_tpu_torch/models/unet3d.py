@@ -1,11 +1,14 @@
-"""Modified 3D U-Net mask branch, inference form (port of
-``cfun_tpu/models/unet3d.py``: ``apply_unet`` and ``apply_unet_fused``).
+"""Modified 3D U-Net mask branch (port of ``cfun_tpu/models/unet3d.py``:
+``apply_unet`` and ``apply_unet_fused``).
 
 A 5-level context pathway (stride-2 3^3 convs, residual blocks,
 InstanceNorm + LeakyReLU) and a 4-level localization pathway (nearest
 upsample + conv) with skip concatenations and deep supervision (ds2/ds3
-1^3 convs upsampled and summed into the output).  Inference has no
-dropout.  Kept quirks of the reference graph: ``c{N}_conv`` is applied
+1^3 convs upsampled and summed into the output).  Training adds channel
+dropout at five sites (after the first level's second conv and between
+each deeper level's two convs); its keep masks come in as arguments
+(``dropout_mask_shapes``), drawn before the graph runs.  Kept quirks of
+the reference graph: ``c{N}_conv`` is applied
 twice with the same weights inside each context level, ``context_1`` taps
 the pre-norm activation, and every conv is bias-free.  At stage
 'finetune' an extra 2x upscale head (``out_upscale``, a 5^3 conv with a
@@ -21,6 +24,8 @@ wider conv is mostly padding.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,17 +43,37 @@ def _check_impl(name: str, impl: str) -> None:
         raise ValueError(f"{name} must be one of {_IMPLS}, got {impl!r}")
 
 
+def dropout_mask_shapes(batch: int, base: int) -> List[Tuple[int, ...]]:
+    """The shapes [B, C, 1, 1, 1] of the five dropout sites' keep masks of
+    :func:`apply_unet` at U-Net base width ``base``, in the order the
+    graph applies them."""
+    return [(batch, c, 1, 1, 1)
+            for c in (base, 2 * base, 4 * base, 8 * base, 16 * base)]
+
+
 def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
+               dropout_rate: float = 0.0,
+               dropout_masks: Optional[Sequence[torch.Tensor]] = None,
                dtype=torch.float32, head_impl: str = "explicit",
                up_impl: str = "explicit") -> torch.Tensor:
     """x: [B, c_in, D, H, W] crop -> class logits [B, n_classes, D', H',
     W'] in ``dtype``, where D' = D (2D at stage 'finetune').
 
+    ``dropout_masks``: the five sites' bool keep masks
+    (:func:`dropout_mask_shapes`); with ``dropout_rate`` > 0 they apply
+    (``nn.channel_dropout``), without them the graph is deterministic.
     ``up_impl``: the decoder up-convs' form, 'phase' where the input has
     at least ``PHASE_MIN_VOXELS`` voxels, else 'explicit'.  ``head_impl``:
     the finetune head's form."""
     _check_impl("head_impl", head_impl)
     _check_impl("up_impl", up_impl)
+    masks = iter(()) if dropout_masks is None or dropout_rate == 0.0 \
+        else iter(dropout_masks)
+
+    def drop(v):
+        keep = next(masks, None)
+        return v if keep is None else nn.channel_dropout(v, dropout_rate,
+                                                         keep)
 
     def conv(p, v, stride=1):
         return nn.conv3d(p, v, stride=stride, dtype=dtype)
@@ -72,7 +97,7 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     # ---- level 1 context
     out = nn.conv3d_1ch(params["c1_1"], x, dtype=dtype)
     residual = out
-    out = conv(params["c1_2"], lrelu(out))
+    out = drop(conv(params["c1_2"], lrelu(out)))
     out = conv(params["c1_lrelu_conv"], lrelu(out))
     out = out + residual
     context_1 = lrelu(out)  # pre-norm tap (mask_branch.py:134)
@@ -83,7 +108,7 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     for lvl in (2, 3, 4, 5):
         out = conv(params[f"c{lvl}_down"], out, stride=2)
         residual = out
-        out = norm_lrelu_conv(params[f"c{lvl}_conv"], out)
+        out = drop(norm_lrelu_conv(params[f"c{lvl}_conv"], out))
         out = norm_lrelu_conv(params[f"c{lvl}_conv"], out)
         out = out + residual
         if lvl < 5:

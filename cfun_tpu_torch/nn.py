@@ -14,11 +14,13 @@ which is what the port runs.  ``upsample2_conv`` and
 (one stride-1 3^3 conv with 8x the output channels, then depth-to-space);
 ``upsample2_conv_explicit`` and ``upsample2_conv_residual_explicit``
 compute the same maps as a nearest upsample followed by the conv.
+``channel_dropout`` is the U-Net's training dropout; its keep masks are
+drawn from an explicit ``torch.Generator`` or passed in.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -229,3 +231,33 @@ def upsample2_conv_residual_explicit(p: Params, x: torch.Tensor,
     again)."""
     up = upsample_nearest(x.to(dtype))
     return up + conv3d(p, up, dtype=dtype)
+
+
+def dropout_keep(shape, rate: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """A bool keep mask of ``shape`` on ``device``, each entry True with
+    probability ``1 - rate``: a uniform draw from ``generator`` (on the
+    generator's device) below ``1 - rate``, as ``jax.random.bernoulli``
+    draws it."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
+def channel_dropout(x: torch.Tensor, rate: float,
+                    keep: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Dropout3d over whole channels of [N, C, D, H, W] (reference
+    mask_branch.py:19): channel c of item n is zeroed where ``keep[n, c]``
+    is False and scaled by ``1 / (1 - rate)`` elsewhere.  ``keep`` [N, C,
+    1, 1, 1] bool is drawn from ``generator`` when not given; a caller
+    that recomputes the forward (``torch.utils.checkpoint``) passes it, so
+    the recomputation sees the same mask."""
+    if rate == 0.0:
+        return x
+    if keep is None:
+        keep = dropout_keep((x.shape[0], x.shape[1], 1, 1, 1), rate,
+                            generator, device=x.device)
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device)
+                       ).to(x.dtype)

@@ -89,3 +89,49 @@ def normalize_boxes(boxes: torch.Tensor, volume_shape) -> torch.Tensor:
 def denormalize_boxes(boxes: torch.Tensor, volume_shape) -> torch.Tensor:
     """[0, 1] -> voxel coordinates; ``volume_shape`` = (D, H, W)."""
     return boxes * _scale(volume_shape, boxes)
+
+
+def box_refinement(boxes: torch.Tensor, gt_boxes: torch.Tensor
+                   ) -> torch.Tensor:
+    """The deltas (dz, dy, dx, log dd, log dh, log dw) that turn ``boxes``
+    into ``gt_boxes`` (reference utils.py:92-119).  Sizes are floored at
+    1e-6, so zero-size padded rows give finite values that the callers'
+    masks drop."""
+    size = torch.clamp(boxes[..., 3:] - boxes[..., :3], min=1e-6)
+    center = boxes[..., :3] + 0.5 * (boxes[..., 3:] - boxes[..., :3])
+    gt_size = torch.clamp(gt_boxes[..., 3:] - gt_boxes[..., :3], min=1e-6)
+    gt_center = gt_boxes[..., :3] + 0.5 * (gt_boxes[..., 3:]
+                                           - gt_boxes[..., :3])
+    d_center = (gt_center - center) / size
+    d_size = torch.log(gt_size / size)
+    return torch.cat([d_center, d_size], dim=-1)
+
+
+def extend_box(box: torch.Tensor, volume_shape,
+               frac: float = 0.05) -> torch.Tensor:
+    """A [6] voxel box grown by ``frac`` of its size on each face, floored
+    / ceiled to integers and clamped to the (D, H, W) volume (reference
+    model.py:1059-1075)."""
+    size = box[3:] - box[:3]
+    lo = torch.floor(torch.clamp(box[:3] - frac * size, min=0.0))
+    limit = torch.tensor(volume_shape, dtype=box.dtype, device=box.device)
+    hi = torch.ceil(torch.minimum(box[3:] + frac * size, limit))
+    return torch.cat([lo, hi])
+
+
+def mask_to_bbox(mask: torch.Tensor) -> torch.Tensor:
+    """Bounding box [6] f32 of the nonzero voxels of a [D, H, W] mask, far
+    corner exclusive (reference ``extract_bboxes``, utils.py:20-47); zeros
+    for an empty mask.  Fixed shapes, no host sync."""
+    nz = mask > 0
+    edges = []
+    for flags in (nz.any(dim=2).any(dim=1), nz.any(dim=2).any(dim=0),
+                  nz.any(dim=1).any(dim=0)):
+        n = flags.shape[0]
+        idx = torch.arange(n, device=mask.device)
+        first = torch.where(flags, idx, torch.full_like(idx, n)).min()
+        last = torch.where(flags, idx, torch.full_like(idx, -1)).max()
+        edges.append((first, last))
+    (z1, z2), (y1, y2), (x1, x2) = edges
+    box = torch.stack([z1, y1, x1, z2 + 1, y2 + 1, x2 + 1]).float()
+    return torch.where(nz.any(), box, torch.zeros_like(box))

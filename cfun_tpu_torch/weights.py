@@ -13,7 +13,8 @@ The phase-decomposed up-convs and upscale head (``nn.upsample2_conv``,
 ``[C_out, C_in, k, k, k]`` leaves at each call, so one tree serves both
 forms.
 
-Every leaf is stored as float32 (the checkpoints may hold float16).  The
+Every leaf is stored as float32 (the checkpoints may hold float16).
+``params_to_numpy`` maps a port tree back to the JAX layouts.  The
 leaves are checked against ``layout(cfg)``: a leaf the port does not use,
 a parameter the tree does not hold and a shape that differs all raise.
 """
@@ -194,6 +195,28 @@ def init_params(cfg, seed: int = 0) -> dict:
         else:
             flat[key] = torch.zeros(shape)
     return _unflatten(flat)
+
+
+def _to_jax_layout(key: str, t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`_convert`: one port leaf as a float32 numpy array
+    in the JAX package's layout."""
+    arr = t.detach().float().cpu().numpy()
+    if key.endswith("/w"):
+        if arr.ndim == 5:
+            arr = arr.transpose(2, 3, 4, 1, 0)
+        elif arr.ndim == 2:
+            arr = arr.T
+        else:
+            raise ValueError(f"{key}: weight of rank {arr.ndim}")
+    return np.ascontiguousarray(arr)
+
+
+def params_to_numpy(params) -> dict:
+    """A port tree of tensors (parameters, or gradients / updates by the
+    same paths) -> the JAX package's tree of float32 numpy arrays in its
+    layouts: the inverse of :func:`params_from_numpy`."""
+    return _unflatten({k: _to_jax_layout(k, v)
+                       for k, v in _leaves(params).items()})
 
 
 def params_from_numpy(tree, cfg) -> dict:

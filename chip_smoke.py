@@ -10,9 +10,10 @@ weights/heart_synth_ft.npz, weights/lits_synth.npz); ``heart`` needs the
 first two, ``lits`` the third.  A missing checkpoint is an error (exit 1).
 
 Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
-(shared: env build k1 k2; heart: serve serve_fused serve_ft cli_heart;
-LiTS: serve_lits serve_lits_fused cli_lits; then stream k2_served profile
-small, each on the families that ran):
+(shared: env build k1 k2 train_tiny; heart: serve serve_fused serve_ft
+cli_heart train_heart; LiTS: serve_lits serve_lits_fused cli_lits
+train_lits; then stream k2_served profile small, each on the families
+that ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -26,6 +27,12 @@ small, each on the families that ran):
           and on two streams at once; then the LiTS sites' sizes (1000->50
           and 50->10 at IoU 0.7) on seeded boxes, checked and timed beside
           their bound
+  train_tiny  one train step (cfun_tpu_torch.train.step.make_train_step)
+          of the tiny config (float32, TF32 off) on the card and one on
+          the CPU, from the same seeded port weights, batch and draws:
+          the same proposals (K1 at 64->32 on the card, its plain version
+          on the CPU), the loss parts to rtol 1e-4, every updated leaf
+          within 1e-5 of its largest magnitude
   serve   whole-heart inference at full width (192x320x320, stage
           'beginning', heart_inference_config with nms_backend='pallas'):
           weights/heart_synth.npz, three requests through Detector.detect
@@ -71,6 +78,17 @@ small, each on the families that ran):
           names K1's kernel); each volume's load / detect (mold, device,
           unmold) / metrics / save ms, submit's sustained s a volume, the
           bytes read and written
+  train_heart  training at full width (192x320x320, bf16):
+          heart_config('beginning') from weights/heart_synth.npz, 6 steps,
+          and heart_config('finetune') (remat U-Net, dropout 0.6, 192^3
+          masks, the edge loss) from weights/heart_synth_ft.npz, 2 steps,
+          on volume 0 of the cli_heart set molded the NumPy way (the bf16
+          wire, 4-bit labels); per step the seconds, the six loss parts
+          and the ROI sample's positives (>= 1 on every step); the checks
+          of train_path (K1 once a step at 1000->500, no plain NMS, no K2,
+          frozen leaves unchanged, the loss falls); the median s/step,
+          max_memory_allocated and K1 at the step's NMS inputs beside its
+          bound, with the card's clocks before and after
   serve_lits  LiTS inference at full width (256x320x320, P3D35,
           lits_inference_config('finetune'): FPN 160, U-Net base 32 at
           batch 10, the device overlap paste, the 2-bit wire) with
@@ -96,6 +114,12 @@ small, each on the families that ran):
           resized there), and 'test --exact' on liver_0 (the host overlap
           unmold of the probability stacks), its Dice beside the fast
           path's
+  train_lits  lits_config('beginning') (P3D35 at 256x320x320, the trunk
+          checkpointed, detection only) from weights/lits_synth.npz, 4
+          steps on held-out volume 0 of serve_lits molded the NumPy way;
+          as train_heart, with the mask subtree unchanged and the loss's
+          descent checked on the first update (the first step's draws and
+          ROI sample held)
   stream  Detector.detect_stream over four full-width heart volumes on the
           dense path: the same results as serial detect, in order, the
           sustained ms a volume beside the serial ms, the launch counts
@@ -119,10 +143,13 @@ small, each on the families that ran):
           versions, float32, TF32 off) on the tiny config, and on a tiny
           LiTS config
 
-Each served phase (and 'stream', and each CLI command) sets every
-kernel's launch count and its record of launch shapes to 0 just before its
-requests and reads them just after; the CLI paths are in the kernels
-line's launches_by_path.
+Each served phase (and 'stream', each CLI command and each train path)
+sets every kernel's launch count and its record of launch shapes to 0 just
+before its requests (or steps) and reads them just after; the CLI and
+train paths are in the kernels line's launches_by_path, K1's training
+shape in its per_shape.  Beside each profiled window and each train path
+the card's SM clock, its maximum, the temperature and the power draw are
+printed (nvidia-smi).
 
 Then a ``{"serving": ...}`` JSON line, one with the kernels, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -260,6 +287,14 @@ LITS_JAX_DICE = (0.975, 0.9597)
 CHECKPOINTS = {"heart": ("weights/heart_synth.npz",
                          "weights/heart_synth_ft.npz"),
                "lits": ("weights/lits_synth.npz",)}
+# Training paths: the steps each takes at full width, and the seed of the
+# generator its draws come from, re-seeded identically on every step so
+# that the objective is one fixed function of the parameters
+TRAIN_STEPS = {"heart beginning": 6, "heart finetune": 2, "lits beginning": 4}
+TRAIN_SEED = 17
+# K1's launch shape (N, max_out) in a full-width train step: propose's
+# pre_nms_limit 1000 -> post_nms_rois_training 500, IoU 0.7
+K1_TRAIN_SHAPE = (1000, 500)
 # CLI runs: the JAX package's held-out heart evaluation set
 # (benchmarks/heart_synth_eval.py: SyntheticDataset(n=12, seed=3000,
 # host_shape=(144, 144, 96), n_fg=7)) and its recorded numbers for
@@ -596,11 +631,13 @@ def profile_requests(det, vols, label):
     from torch.profiler import ProfilerActivity, profile
 
     n = len(vols)
+    print_clocks(f"profile {label} before")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for vol in vols:
             det.detect(vol)
         torch.cuda.synchronize()
+    print_clocks(f"profile {label} after")
     dev = sorted(((_dev_us(e), e.key, e.count) for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  reverse=True)
@@ -685,6 +722,430 @@ def kernel_device_ms(call, names, reps=20):
     kernel_us = sum(_dev_us(e) for e in prof.key_averages()
                     if any(n in e.key for n in names))
     return replay, kernel_us / (reps * 1e3)
+
+
+def print_clocks(label):
+    """The card's clock state beside a measured window: nvidia-smi's SM
+    clock, its maximum, the temperature and the power draw."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    clocks = out.strip().splitlines()[0].strip()
+    print(f"clocks {label}: {clocks} (clocks.sm, clocks.max.sm, "
+          f"temperature.gpu, power.draw)", flush=True)
+    return clocks
+
+
+def train_batch(cfg, molded, labels, device, seed=0):
+    """A TrainBatch on ``device`` built as the JAX package's feeder builds
+    one at angle 0 (cfun_tpu/data/feeder.py:346-378): the GT box from the
+    molded labels (np_mask_to_extended_bbox), the RPN targets
+    (build_rpn_targets on config_anchors, NumPy generator ``seed``), the
+    image in the compute dtype (the bf16 wire), the labels packed two a
+    byte along W.  molded / labels: [D, H, W]."""
+    import numpy as np
+    import torch
+
+    from cfun_tpu_torch.data.feeder import np_mask_to_extended_bbox
+    from cfun_tpu_torch.models.cfun import compute_dtype
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train.step import TrainBatch, pack_labels_w
+    from cfun_tpu_torch.train.targets import build_rpn_targets
+
+    gt_box = np_mask_to_extended_bbox(labels)
+    match, deltas = build_rpn_targets(config_anchors(cfg), gt_box, cfg,
+                                      np.random.default_rng(seed))
+    d, h, w = cfg.image_shape
+    norm = np.array([d, h, w, d, h, w], np.float32)
+    packed = pack_labels_w(labels) if cfg.num_classes <= 16 and w % 2 == 0 \
+        else labels.astype(np.int8)
+    image = torch.from_numpy(np.ascontiguousarray(molded, np.float32))
+    return TrainBatch(
+        image=image[None, None].to(compute_dtype(cfg)),
+        rpn_match=torch.from_numpy(match),
+        rpn_deltas=torch.from_numpy(deltas),
+        gt_box_norm=torch.from_numpy(gt_box / norm),
+        labels=torch.from_numpy(np.ascontiguousarray(packed))).to(device)
+
+
+def heart_train_batch(cfg, device):
+    """Volume 0 of the held-out heart set the cli_heart phase serves
+    (SyntheticDataset(**HEART_EVAL)), molded the NumPy way: the port's
+    trilinear mold and z-score, the labels by resize(order=0)."""
+    import numpy as np
+
+    from cfun_tpu_torch.data.datasets import SyntheticDataset
+    from cfun_tpu_torch.data.mold import mold_volume, normalize_intensity
+    from cfun_tpu_torch.data.resample import resize
+
+    held = SyntheticDataset(cfg, **HEART_EVAL)
+    molded, _ = mold_volume(held.load_image(0), cfg)
+    d, h, w = cfg.image_shape
+    labels = np.rint(resize(held.load_mask(0), (h, w, d), order=0)).astype(
+        np.int32).transpose(2, 0, 1)
+    return train_batch(cfg, normalize_intensity(molded, cfg), labels, device)
+
+
+def lits_train_batch(cfg, vol, mask, device):
+    """One held-out LiTS volume molded the NumPy way: the port's LiTS
+    mold (HU window, virtual centre-pad, nearest), the labels by
+    pad_resize_nearest with the same offsets (feeder.py:101-117)."""
+    import numpy as np
+
+    from cfun_tpu_torch.data.mold import mold_volume, pad_offsets
+    from cfun_tpu_torch.data.resample import pad_resize_nearest
+
+    molded, _ = mold_volume(vol, cfg)
+    pd, ph, pw = cfg.pad_shape
+    d, h, w = cfg.image_shape
+    labels = pad_resize_nearest(mask.astype(np.int32), (ph, pw, pd),
+                                (h, w, d), pad_offsets(vol.shape,
+                                                       cfg.pad_shape))
+    return train_batch(cfg, molded, labels.transpose(2, 0, 1), device)
+
+
+def _move_draws(draws, device):
+    from cfun_tpu_torch.train.step import TrainDraws
+    from cfun_tpu_torch.train.targets import TargetDraws
+
+    return TrainDraws(
+        TargetDraws(*(t.to(device) for t in draws.targets)),
+        None if draws.dropout_masks is None
+        else [m.to(device) for m in draws.dropout_masks])
+
+
+def train_path(label, cfg, params, batch, n_steps, counters, k1,
+               falls_by_last=True):
+    """``n_steps`` train steps (``make_train_step``) at full width on the
+    batch's device, the draws re-seeded identically each step.  Every
+    kernel's launch count and shape record is set to 0 just before the
+    steps and read just after; K1's plain version is counted too (it must
+    not run).  Checks: the six loss parts finite, those stage_flags turns
+    off exactly 0; K1 once a step at K1_TRAIN_SHAPE, K2 never; each step's
+    NMS inputs give K1's idx / keep through the plain version; the frozen
+    leaves (BN statistics, the stage-frozen subtrees) bit-unchanged; the
+    first update lowers the first step's objective (its draws and its ROI
+    sample held: one fixed function of the parameters); with
+    ``falls_by_last``, the loss after the last update below the first
+    step's too.  Then K1 timed at the first step's NMS inputs.  Returns
+    the path's record."""
+    import numpy as np
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    det_on, mask_on, edge_on = tstep.stage_flags(cfg)
+    dev = batch.image.device
+    init, step = tstep.make_train_step(cfg, config_anchors(cfg))
+    state = init(params)
+    frozen = {p: leaf.detach().clone()
+              for p, leaf in weights._leaves(state.params).items()
+              if not leaf.requires_grad}
+    n_train = sum(leaf.numel() for leaf in state.opt_state.leaves)
+    seen, tgts, plain_calls = [], [], [0]
+
+    def nms(boxes, valid, thr, k):
+        idx, keep = k1.sorted_nms(boxes, valid, thr, k)
+        seen.append((boxes.clone(), valid.clone(), thr, k, idx.clone(),
+                     keep.clone()))
+        return idx, keep
+
+    orig_targets, orig_plain = tstep.detection_targets, k1.sorted_nms_reference
+
+    def targets(*args, **kw):
+        tgt = orig_targets(*args, **kw)
+        tgts.append(tgt)
+        return tgt
+
+    def plain(*args):
+        plain_calls[0] += 1
+        return orig_plain(*args)
+
+    clocks = [print_clocks(f"{label} before")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold (their detectors), and this path's
+    # parameters and batch
+    base = torch.cuda.memory_allocated()
+    tstep.detection_targets, k1.sorted_nms_reference = targets, plain
+    reset_counts(counters)
+    anchors = torch.from_numpy(config_anchors(cfg)).to(dev)
+    secs, losses, n_pos = [], [], []
+    try:
+        for i in range(n_steps):
+            draws = tstep.draw_train(
+                cfg, torch.Generator().manual_seed(TRAIN_SEED), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, draws, nms=nms)
+            parts = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(parts)
+            n_pos.append(int(tgts[-1].pos_valid.sum()))
+            print(f"{label} step {i}: {secs[-1]:.3f} s; n_pos {n_pos[-1]}; "
+                  f"losses {parts}", flush=True)
+            if i == 0:
+                # the first step's objective after the first update: its
+                # draws and ROI sample held (the proposals then matter
+                # not: the recorded NMS result stands in, no launch)
+                first = (tgts[0], seen[0][4], seen[0][5])
+                tstep.detection_targets = lambda *a, **kw: first[0]
+                with torch.no_grad():
+                    held_1, _ = tstep.train_forward(
+                        state.params, batch, anchors, cfg, draws,
+                        nms=lambda *a: first[1:])
+                tstep.detection_targets = targets
+                loss_first_update = float(held_1)
+        launches = {name: mod.launches for name, mod in counters.items()}
+        shapes = {name: dict(mod.launch_shapes)
+                  for name, mod in counters.items()}
+        plain_in_steps = plain_calls[0]
+        peak = torch.cuda.max_memory_allocated()
+        clocks.append(print_clocks(f"{label} after"))
+        with torch.no_grad():
+            after, _ = tstep.train_forward(state.params, batch, anchors, cfg,
+                                           draws)
+        loss_after = float(after)
+    finally:
+        tstep.detection_targets, k1.sorted_nms_reference = (orig_targets,
+                                                            orig_plain)
+
+    for i, parts in enumerate(losses):
+        for name, v in parts.items():
+            check(np.isfinite(v), f"{label} step {i}: {name} finite")
+        for name, on in (("rpn_class_loss", det_on), ("rpn_bbox_loss",
+                                                      det_on),
+                         ("mrcnn_class_loss", det_on),
+                         ("mrcnn_bbox_loss", det_on),
+                         ("mrcnn_mask_loss", mask_on),
+                         ("mrcnn_mask_edge_loss", edge_on)):
+            if not on:
+                check(parts[name] == 0.0,
+                      f"{label} step {i}: {name} is off and exactly 0")
+    check(launches["sorted_nms"] == n_steps and
+          shapes["sorted_nms"] == {K1_TRAIN_SHAPE: n_steps},
+          f"{label}: K1 once a step at {K1_TRAIN_SHAPE}: {launches} "
+          f"{shapes}")
+    check(plain_in_steps == 0, f"{label}: the plain NMS ran in the steps")
+    check(launches["fused_conv3d"] == 0, f"{label}: K2 launched")
+    for i, (boxes, valid, thr, k, idx, keep) in enumerate(seen[:n_steps]):
+        ridx, rkeep = orig_plain(boxes, valid, thr, k)
+        check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
+              f"{label} step {i}: K1 against its plain version on the "
+              f"step's NMS inputs")
+    for p, before in frozen.items():
+        check(torch.equal(weights._leaves(state.params)[p], before),
+              f"{label}: frozen leaf {p} changed")
+    check(loss_first_update < losses[0]["total_loss"],
+          f"{label}: the first update lowers the first step's objective: "
+          f"{losses[0]['total_loss']} -> {loss_first_update}")
+    if falls_by_last:
+        check(loss_after < losses[0]["total_loss"],
+              f"{label}: the loss after the last step {loss_after} is "
+              f"below the first step's {losses[0]['total_loss']}")
+    state, breakdown = train_breakdown(label, cfg, state, step, batch,
+                                       draws)
+    boxes, valid, thr, k = seen[0][:4]
+    rec = k1_time(k1, boxes, valid, thr, k, f"{label} step")
+    rec["device_ms"], rec["kernel_ms"] = kernel_device_ms(
+        lambda: k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
+    rec["site"] = label
+    med = float(np.median(secs[1:])) if n_steps > 1 else secs[0]
+    print(f"{label}: {n_steps} steps, median {med:.4f} s/step after the "
+          f"first, first step {secs[0]:.4f} s; max_memory_allocated {peak} "
+          f"B ({peak - base} B above the {base} B allocated before the "
+          f"steps); {len(frozen)} frozen leaves unchanged, {n_train} trainable "
+          f"parameters; loss {losses[0]['total_loss']:.6g} -> "
+          f"{losses[-1]['total_loss']:.6g} (after the last update "
+          f"{loss_after:.6g}; the first step's objective after the first "
+          f"update {loss_first_update:.6g}); n_pos {n_pos}; "
+          f"K1 at {K1_TRAIN_SHAPE}: wrapped {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms (graph replay) / {rec['kernel_ms']:.4f}"
+          f" ms (profiler), bound {rec['bound_ms']:.3g} ms "
+          f"({rec['bound_by']}), kept {rec['kept']}", flush=True)
+    return {"steps": n_steps, "s_per_step": secs,
+            "median_s_per_step_after_first": med, "first_step_s": secs[0],
+            "peak_bytes": peak, "allocated_before_bytes": base,
+            "losses": losses, "loss_after": loss_after,
+            "loss_first_update_held": loss_first_update, "n_pos": n_pos,
+            "launches": launches, "clocks": clocks, "k1": rec,
+            "frozen_leaves": len(frozen), "trainable_parameters": n_train,
+            "breakdown": breakdown}
+
+
+def train_breakdown(label, cfg, state, step, batch, draws):
+    """Where a train step's time goes, on two more steps: CUDA events
+    around the forward's layers (the trunk, the proposal layer with K1,
+    the detection targets, the classifier branch, the mask branch, the
+    losses), the backward pass and the optimizer, each span's ms as the
+    stream saw it (the rest of the step is glue); then one step under
+    torch.profiler, its device busy ms (kernel and copy time summed)
+    against its wall ms.  Returns (state, record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cfun_tpu_torch.models import cfun
+    from cfun_tpu_torch.train import losses as L
+    from cfun_tpu_torch.train import step as tstep
+
+    spans, in_backward = [], [False]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            if in_backward[0]:  # a checkpoint's recomputation
+                return fn(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return run
+
+    def backward(fn):
+        def run(*args, **kw):
+            in_backward[0] = True
+            try:
+                return fn(*args, **kw)
+            finally:
+                in_backward[0] = False
+        return timed("backward", run)
+
+    patches = [(cfun, "apply_trunk", "trunk fwd"),
+               (cfun, "propose", "propose (K1)"),
+               (tstep, "detection_targets", "detection targets"),
+               (cfun, "pyramid_roi_align", "classifier fwd"),
+               (tstep, "apply_classifier", "classifier fwd"),
+               (tstep, "roi_align", "mask branch fwd"),
+               (tstep, "apply_mask_head", "mask branch fwd"),
+               (tstep, "apply_update", "optimizer")]
+    patches += [(L, name, "losses fwd") for name in (
+        "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+        "mrcnn_bbox_loss", "mask_loss", "mask_edge_loss")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    grad = torch.autograd.grad
+    torch.cuda.synchronize()
+    t_start = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    try:
+        for mod, name, span in patches:
+            setattr(mod, name, timed(span, getattr(mod, name)))
+        torch.autograd.grad = backward(grad)
+        t_start.record()
+        state, _ = step(state, batch, draws)
+        t_end.record()
+    finally:
+        torch.autograd.grad = grad
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    by_span = {}
+    for name, start, end in spans:
+        by_span[name] = by_span.get(name, 0.0) + start.elapsed_time(end)
+    step_ms = t_start.elapsed_time(t_end)
+    by_span["glue"] = step_ms - sum(by_span.values())
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, draws)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"{label} breakdown: a step {step_ms:.3f} ms on the stream; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in by_span.items())
+          + f" ms; under the profiler device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall (idle {1 - busy / wall:.3f})", flush=True)
+    return state, {"step_ms": step_ms, "span_ms": by_span,
+                   "busy_ms": busy, "wall_ms": wall,
+                   "idle_share": 1 - busy / wall}
+
+
+def train_tiny(k1, counters, dev):
+    """One train step of the tiny config (float32; the caller turns TF32
+    off) on the card and one on the CPU, from the same seeded port weights,
+    batch (tests/test_train_step.py:17-39) and draws: the same proposals
+    (K1 at 64->32 on the card, its plain version on the CPU), the loss
+    parts to rtol 1e-4, every updated leaf within 1e-5 of its largest
+    magnitude.  Returns (K1 launches on the card, record)."""
+    import numpy as np
+    import torch
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    cfg = port_config.tiny_config()
+    d, h, w = cfg.image_shape
+    rng = np.random.default_rng(0)
+    labels = np.zeros((d, h, w), np.int32)
+    labels[8:24, 16:48, 16:48] = 1
+    labels[10:20, 20:40, 20:40] = 2
+    labels[12:16, 24:32, 24:32] = 3
+    image = rng.normal(size=(d, h, w)).astype(np.float32)
+    image += 2.0 * (labels > 0)
+    draws = tstep.draw_train(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                             "cpu")
+    out = {}
+    for device in ("cpu", dev):
+        init, step = tstep.make_train_step(cfg, config_anchors(cfg))
+        state = init(weights.to_device(weights.init_params(cfg, seed=0),
+                                       device))
+        batch = train_batch(cfg, image, labels, device)
+        seen = []
+
+        def nms(boxes, valid, thr, k):
+            idx, keep = k1.sorted_nms(boxes, valid, thr, k)
+            seen.append((boxes.cpu(), idx.cpu(), keep.cpu(), k))
+            return idx, keep
+
+        reset_counts(counters)
+        state, metrics = step(state, batch, _move_draws(draws, device),
+                              nms=nms)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[str(device)] = (seen, {k: float(v) for k, v in metrics.items()},
+                            {p: v.detach().cpu() for p, v in
+                             weights._leaves(state.params).items()},
+                            {name: mod.launches
+                             for name, mod in counters.items()},
+                            {name: dict(mod.launch_shapes)
+                             for name, mod in counters.items()})
+    (cseen, cparts, cparams, clines, _), (gseen, gparts, gparams, glaunch,
+                                          gshapes) = out["cpu"], out[str(dev)]
+    check(clines["sorted_nms"] == 0, "train_tiny: no K1 launch on the CPU")
+    check(glaunch["sorted_nms"] == 1 and
+          gshapes["sorted_nms"] == {(cfg.pre_nms_limit,
+                                     cfg.post_nms_rois_training): 1},
+          f"train_tiny: K1 once at (64, 32) on the card: {gshapes}")
+    check(len(cseen) == len(gseen) == 1, "train_tiny: one NMS call a step")
+    check(torch.equal(cseen[0][1], gseen[0][1]) and
+          torch.equal(cseen[0][2], gseen[0][2]),
+          "train_tiny: the card's proposals are the CPU's")
+    check(torch.allclose(cseen[0][0], gseen[0][0], rtol=1e-4, atol=1e-4),
+          "train_tiny: the NMS input boxes")
+    for k, v in cparts.items():
+        check(np.isfinite(v) and abs(gparts[k] - v) <= 1e-4 * abs(v),
+              f"train_tiny: {k} card {gparts[k]} vs CPU {v}")
+    worst = 0.0
+    for p, v in cparams.items():
+        scale = float(v.abs().max())
+        err = float((gparams[p] - v).abs().max())
+        check(err <= 1e-5 * scale, f"train_tiny: updated {p} differs by "
+              f"{err} (largest magnitude {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"train_tiny: one step on the card and on the CPU agree: "
+          f"proposals equal ({int(gseen[0][2].sum())} kept), losses "
+          f"{gparts} vs {cparts}; updated leaves within {worst:.3g} of "
+          f"their largest magnitude", flush=True)
+    return glaunch, {"losses_card": gparts, "losses_cpu": cparts,
+                     "worst_leaf_rel": worst}
 
 
 def serve_requests(det, vols, counters, label):
@@ -1547,6 +2008,8 @@ def main() -> int:
     launches_by_path, request_ms, busy, peak = {}, {}, {}, {}
     # by family: the CLI runs' per-volume stages, bytes, Dice
     cli_stats = {}
+    # by train path: steps, s/step, peak bytes, losses, K1 at its shape
+    training = {}
     detectors = []
 
     with phase("env"):
@@ -1616,6 +2079,19 @@ def main() -> int:
                      f"edge B={b} {ci}->{co} {d}x{h}x{w} pre_lrelu={pre}")
         print(f"k2 within tolerance and deterministic on {len(K2_EDGE)} "
               f"edge cases", flush=True)
+
+    with phase("train_tiny"):
+        # full float32 on the card (cuDNN convs default to TF32)
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            launches_by_path["train_tiny"], training["tiny"] = train_tiny(
+                k1, counters, dev)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
 
     if heart:
         with phase("serve"):
@@ -1744,6 +2220,24 @@ def main() -> int:
                 shutil.rmtree(tmp)
             launches_by_path.update(cli_launches)
 
+        with phase("train_heart"):
+            for stage, wname in (("beginning", "heart_synth.npz"),
+                                 ("finetune", "heart_synth_ft.npz")):
+                label = f"heart {stage}"
+                tcfg = port_config.heart_config(stage)
+                tparams, _ = weights.load_npz(
+                    os.path.join(ROOT, "weights", wname), tcfg)
+                rec = training[label] = train_path(
+                    f"train_heart {stage}", tcfg,
+                    weights.to_device(tparams, dev),
+                    heart_train_batch(tcfg, dev), TRAIN_STEPS[label],
+                    counters, k1)
+                launches_by_path[f"train_heart_{stage}"] = rec["launches"]
+                check(min(rec["n_pos"]) >= 1,
+                      f"{label}: a positive ROI on every step {rec['n_pos']}")
+                del tparams
+                torch.cuda.empty_cache()
+
     if lits:
         with phase("serve_lits"):
             lcfg = port_config.lits_inference_config("finetune")
@@ -1868,6 +2362,25 @@ def main() -> int:
             finally:
                 shutil.rmtree(tmp)
             launches_by_path.update(cli_launches)
+
+        with phase("train_lits"):
+            tcfg = port_config.lits_config("beginning")
+            # the tree is the same at every stage (cfun_tpu/config.py:8-9);
+            # a fresh copy, since the step updates its leaves in place
+            tparams, _ = weights.load_npz(lpath, tcfg)
+            # from the trained checkpoint the RPN's updates move the
+            # proposals (so the ROI sample) and the shared trunk, and the
+            # classifier's loss rises over a few steps; the first
+            # update's descent on the held objective is checked
+            rec = training["lits beginning"] = train_path(
+                "train_lits beginning", tcfg,
+                weights.to_device(tparams, dev),
+                lits_train_batch(tcfg, held[0][0], held[0][1], dev),
+                TRAIN_STEPS["lits beginning"], counters, k1,
+                falls_by_last=False)
+            launches_by_path["train_lits_beginning"] = rec["launches"]
+            del tparams
+            torch.cuda.empty_cache()
 
     with phase("stream"):
         n_sync, sync_msgs, stream_stats = None, [], None
@@ -2073,7 +2586,8 @@ def main() -> int:
                                 for p, s in k1_paths.items()},
         "ptxas": [k for k in ptxas if k["kernel"].startswith(K1_KERNELS)],
         "launches_by_path": k1_launch,
-        "per_shape": [s for sites in k1_paths.values() for s in sites],
+        "per_shape": [s for sites in k1_paths.values() for s in sites] +
+                     [rec["k1"] for rec in training.values() if "k1" in rec],
         "lits_size_cases": k1_lits_cases}, {
         "name": "fused_conv3d", "route": "cuda",
         "route_note": "tensor cores (mma.sync m16n8k16 bf16, f32 "
@@ -2124,6 +2638,7 @@ def main() -> int:
             overlap_paste=paste, lits_wire_bytes=wire_up)
     serving["serving"]["small_label_agree"] = small_agree
     serving["serving"]["cli"] = cli_stats
+    serving["serving"]["training"] = training
     print(json.dumps(serving), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)

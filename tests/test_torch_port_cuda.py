@@ -281,3 +281,80 @@ def test_lits_detector_card_matches_cpu(cuda):
     assert np.abs(got["rois"] - want["rois"]).max(initial=0) <= 1
     assert got["mask"].shape == vol.shape
     assert float((got["mask"] == want["mask"]).mean()) >= 0.99
+
+
+def _organ_train_batch(cfg, params, device):
+    """A tiny batch whose organ sits on the port's first proposal (from
+    the CPU graph), so the ROI sample has positives and the mask branch
+    runs; RPN targets from ``build_rpn_targets``."""
+    from cfun_tpu_torch.data.feeder import np_mask_to_extended_bbox
+    from cfun_tpu_torch.models import cfun
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train.step import TrainBatch
+    from cfun_tpu_torch.train.targets import build_rpn_targets
+
+    d, h, w = cfg.image_shape
+    image = np.random.default_rng(0).normal(size=(d, h, w)).astype(
+        np.float32)
+    anchors = config_anchors(cfg)
+    with torch.no_grad():
+        trunk = cfun.apply_trunk(params, torch.from_numpy(image)[None, None],
+                                 cfg)
+        props, _ = cfun.propose(trunk.rpn_logits[0], trunk.rpn_deltas[0],
+                                torch.from_numpy(anchors), cfg,
+                                cfg.post_nms_rois_training)
+    scale = np.array([d, h, w, d, h, w], np.float32)
+    box = props[0].numpy() * scale
+    lo, hi = np.ceil(box[:3]).astype(int), np.floor(box[3:]).astype(int)
+    labels = np.zeros((d, h, w), np.int32)
+    labels[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+    gt = np_mask_to_extended_bbox(labels)
+    match, deltas = build_rpn_targets(anchors, gt, cfg,
+                                      np.random.default_rng(0))
+    return TrainBatch(torch.from_numpy(image)[None, None],
+                      torch.from_numpy(match), torch.from_numpy(deltas),
+                      torch.from_numpy(gt / scale),
+                      torch.from_numpy(labels)).to(device)
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One train step of the tiny 'finetune' config (remat U-Net, dropout
+    0.6, the edge loss; float32, TF32 off) on the card and on the CPU from
+    the same weights, batch and draws: K1 once at 64->32 on the card, the
+    loss parts to rtol 1e-4, every updated leaf within 1e-5 of its
+    largest magnitude."""
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    cfg = pconfig.tiny_config("finetune", remat_unet=True)
+    draws = tstep.draw_train(cfg, torch.Generator().manual_seed(3), "cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for device in ("cpu", cuda):
+            params = weights.to_device(weights.init_params(cfg, seed=0),
+                                       device)
+            batch = _organ_train_batch(cfg, weights.init_params(cfg, 0),
+                                       device)
+            init, step = tstep.make_train_step(cfg, config_anchors(cfg))
+            before = k1.launches
+            state, metrics = step(init(params), batch, tstep.TrainDraws(
+                tstep.TargetDraws(*(u.to(device)
+                                    for u in draws.targets)),
+                [m.to(device) for m in draws.dropout_masks]))
+            out[str(device)] = ({k: float(v) for k, v in metrics.items()},
+                                {p: v.detach().cpu() for p, v in
+                                 weights._leaves(state.params).items()},
+                                k1.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cparts, cparams, claunch), (gparts, gparams, glaunch) = \
+        out["cpu"], out[str(cuda)]
+    assert claunch == 0 and glaunch == 1
+    assert cparts["mrcnn_mask_loss"] > 0 and cparts["mrcnn_mask_edge_loss"] > 0
+    for k, v in cparts.items():
+        np.testing.assert_allclose(gparts[k], v, rtol=1e-4, err_msg=k)
+    for p, v in cparams.items():
+        scale = float(v.abs().max())
+        assert float((gparams[p] - v).abs().max()) <= 1e-5 * scale, p

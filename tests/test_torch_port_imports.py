@@ -33,9 +33,39 @@ def test_port_imports_no_jax_or_cfun_tpu():
     assert bad == "[]", f"the port imported {bad}"
 
 
+_TRAIN_PROBE = r"""
+import importlib, pkgutil, sys
+import cfun_tpu_torch
+names = {m.name for m in pkgutil.walk_packages(cfun_tpu_torch.__path__,
+                                               "cfun_tpu_torch.")}
+new = ["cfun_tpu_torch.train", "cfun_tpu_torch.train.losses",
+       "cfun_tpu_torch.train.targets", "cfun_tpu_torch.train.step",
+       "cfun_tpu_torch.data.feeder"]
+for name in new:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "ml_dtypes", "optax", "cfun_tpu")
+             or m.startswith(("jax.", "jaxlib.", "optax.", "cfun_tpu.")))
+print(sorted(set(new) - names), bad)
+"""
+
+
+def test_train_modules_import_alone():
+    """The training modules (and the feeder's NumPy part) are found by the
+    walk above and import neither JAX, optax nor the JAX package: the
+    port keeps its own ``build_rpn_targets`` and
+    ``np_mask_to_extended_bbox``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] []", proc.stdout
+
+
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|ml_dtypes|cfun_tpu(\.|\s|$))")
+        r"^\s*(import|from)\s+(jax|ml_dtypes|optax|cfun_tpu(\.|\s|$))")
     files = [os.path.join(ROOT, name)
              for name in ("chip_smoke.py", "k1_compare.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "cfun_tpu_torch")):
