@@ -1,12 +1,13 @@
 """Command-line entry points of the port, mirroring ``cfun_tpu/cli``
-(the reference's heart_main / LiTS_main)."""
+(the reference's heart_main / LiTS_main): ``train``, ``test``, ``submit``
+and LiTS' ``preprocess``."""
 
 from typing import Optional, Tuple
 
 
 def parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
-    """'DATA[,SPACE]' -> (data, space), the ``--mesh`` value of the JAX
-    package's trainer.  The port parses it to keep the argparse surface;
+    """'DATA[,SPACE]' -> (data, space), the ``--mesh`` value of the
+    trainer.  ``train_model`` takes one device (data * space == 1);
     training over several devices is not ported yet."""
     if not spec:
         return None
@@ -16,12 +17,19 @@ def parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
     return (parts[0], parts[1] if len(parts) == 2 else 1)
 
 
-def train_not_ported(parser, cli: str) -> None:
-    """Stop ``train`` with an error (exit code 2): training is not ported
-    yet, and nothing stands in for it."""
-    parser.error("the 'train' command is not yet ported to cfun_tpu_torch;"
-                 f" the JAX package trains (python -m cfun_tpu.cli.{cli} "
-                 "train)")
+def require_one_device(parser, spec: Optional[str]
+                       ) -> Optional[Tuple[int, int]]:
+    """``--mesh`` parsed; stop with an error (exit code 2) when it asks for
+    more than one device: multi-device training is not yet ported
+    (ROADMAP.md A.6)."""
+    try:
+        mesh = parse_mesh(spec)
+    except ValueError as e:
+        parser.error(str(e))
+    if mesh is not None and mesh[0] * mesh[1] > 1:
+        parser.error(f"--mesh {spec}: multi-device training is not yet "
+                     "ported (ROADMAP.md A.6); train on one device")
+    return mesh
 
 
 def require_device(parser, device: str) -> None:
@@ -45,6 +53,6 @@ def inference_params(cfg, weights_arg: str) -> dict:
 
     params = weights.init_params(cfg, seed=0)
     if weights_arg.lower() != "none":
-        params, meta = checkpoint.load_any(weights_arg, cfg, params)
+        params, _, meta = checkpoint.load_any(weights_arg, cfg, params)
         print(f"Weights loaded: {weights_arg} ({meta.get('source', 'npz')})")
     return params

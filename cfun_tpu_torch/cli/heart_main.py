@@ -1,13 +1,25 @@
-"""Whole-heart (MM-WHS 2017) test / submit CLI of the port.
+"""Whole-heart (MM-WHS 2017) train / test / submit CLI of the port.
 
 The port's copy of ``cfun_tpu/cli/heart_main.py``, with the same argparse
 surface (the reference's heart_main.py:367-446) and one option more,
 ``--device``:
 
+    python -m cfun_tpu_torch.cli.heart_main train --weights none \
+        --stage beginning --data /path/to/data/ [--epochs 10 --workers 8]
     python -m cfun_tpu_torch.cli.heart_main test --weights ckpt.npz \
         --stage finetune --data /path/to/data/ [--limit 5 --save true]
     python -m cfun_tpu_torch.cli.heart_main submit --weights ckpt.npz \
         --stage beginning --data /path/to/data/ [--limit 5]
+
+``train`` runs ``train/loop.py::train_model`` on ``heart_config(stage)``
+over the manifest's volumes (the first 13 validate, the rest train),
+from a checkpoint (the port's or the JAX package's ``.npz``, which resumes
+the optimizer and the epoch count, or a reference PyTorch checkpoint) or
+from seeded random weights ('none'), writing ``train_metrics.jsonl`` and
+``model.npz`` under ``--logs``.  ``--aug-device`` rotates and targets on
+the device; ``--device-cache`` (with it) keeps the molds in device memory.
+``--mesh`` with more than one device stops: multi-device training is not
+ported yet.
 
 ``test`` runs the full inference stack on labeled volumes, reports per-class
 mask IoU (and Dice -- the paper's headline metric) plus per-volume latency,
@@ -15,10 +27,10 @@ and optionally exports predicted label volumes as .nii.gz with the GT affine
 into ./results (heart_main.py:286-360).  ``submit`` exports the labels of
 every manifest image through ``Detector.detect_stream``.
 
-Both run on CUDA unless ``--device cpu`` is given; without a card the
-command stops with an error.  ``--weights`` takes the JAX package's
+Every command runs on CUDA unless ``--device cpu`` is given; without a
+card it stops with an error.  ``--weights`` takes the JAX package's
 ``.npz`` checkpoints or a reference PyTorch checkpoint (told apart by
-content).  ``train`` is not ported yet and stops with an error.
+content).
 """
 
 from __future__ import annotations
@@ -152,11 +164,13 @@ def run_submit(cfg, params, data_dir: str, limit: int,
 
 def main(argv=None):
     """Parse ``argv`` and run the command.  Returns what its
-    ``run_test`` / ``run_submit`` returns."""
+    ``train_model`` (the final checkpoint's path) / ``run_test`` /
+    ``run_submit`` returns."""
     parser = argparse.ArgumentParser(
-        description="Test the CFUN whole-heart pipeline on PyTorch + CUDA.")
+        description="Train and test the CFUN whole-heart pipeline on "
+                    "PyTorch + CUDA.")
     parser.add_argument("command", metavar="<command>",
-                        help="'test' or 'submit' ('train' is not ported)")
+                        help="'train', 'test' or 'submit'")
     parser.add_argument("--weights", required=True,
                         help="Path to a .npz or reference PyTorch "
                              "checkpoint, or 'none'")
@@ -170,12 +184,14 @@ def main(argv=None):
     parser.add_argument("--epochs", default=None, type=int)
     parser.add_argument("--workers", default=8, type=int)
     parser.add_argument("--mesh", default=None, metavar="DATA[,SPACE]",
-                        help="train over a device mesh (training is not "
-                             "ported)")
+                        help="train over a device mesh (one device only: "
+                             "multi-device training is not yet ported)")
     parser.add_argument("--aug-device", action="store_true",
-                        help="training option (training is not ported)")
+                        help="train: rotation, GT box and RPN targets on "
+                             "the device")
     parser.add_argument("--device-cache", action="store_true",
-                        help="training option (training is not ported)")
+                        help="train (with --aug-device): keep the molded "
+                             "volumes in device memory across epochs")
     parser.add_argument("--exact", action="store_true",
                         help="disable every wire/unmold approximation "
                              "(bf16 wire, host normalization, "
@@ -192,22 +208,47 @@ def main(argv=None):
     import contextlib
 
     from cfun_tpu_torch.cli import (inference_params, require_device,
-                                    train_not_ported)
+                                    require_one_device)
     from cfun_tpu_torch.config import (exact_reference_overrides,
-                                       heart_inference_config)
+                                       heart_config, heart_inference_config)
     from cfun_tpu_torch.utils.profiling import device_trace
 
-    if args.command == "train":
-        train_not_ported(parser, "heart_main")
-    if args.command not in ("test", "submit"):
+    if args.command not in ("train", "test", "submit"):
         parser.error(f"'{args.command}' is not recognized. "
-                     "Use 'test' or 'submit'")
+                     "Use 'train', 'test' or 'submit'")
+    trace_ctx = (device_trace(args.trace) if args.trace
+                 else contextlib.nullcontext())
+    if args.command == "train":
+        if args.device_cache and not args.aug_device:
+            # the device mold cache holds angle-independent molds, which
+            # only exist when the rotation happens on the device
+            raise SystemExit("--device-cache requires --aug-device")
+        mesh = require_one_device(parser, args.mesh)
+        require_device(parser, args.device)
+        cfg = heart_config(args.stage)
+        if args.aug_device:
+            cfg = cfg.replace(augment_on_device=True,
+                              device_mold_cache=args.device_cache)
+        from cfun_tpu_torch.data.datasets import HeartDataset
+        from cfun_tpu_torch.train.loop import train_model
+
+        train_ds = HeartDataset()
+        train_ds.load_heart(args.data, "train")
+        train_ds.prepare()
+        val_ds = HeartDataset()
+        val_ds.load_heart(args.data, "val")
+        val_ds.prepare()
+        print(cfg.describe())
+        print("Training...")
+        with trace_ctx:
+            return train_model(cfg, train_ds, val_ds, log_dir=args.logs,
+                               weights=args.weights, epochs=args.epochs,
+                               num_workers=args.workers, mesh_spec=mesh,
+                               device=args.device)
     require_device(parser, args.device)
     overrides = exact_reference_overrides() if args.exact else {}
     cfg = heart_inference_config(args.stage, **overrides)
     params = inference_params(cfg, args.weights)
-    trace_ctx = (device_trace(args.trace) if args.trace
-                 else contextlib.nullcontext())
     if args.command == "test":
         print("Testing..." + (" (exact reference mode)" if args.exact
                               else ""))

@@ -1,4 +1,5 @@
-"""Liver/tumor (LiTS 2017) preprocess / test / submit CLI of the port.
+"""Liver/tumor (LiTS 2017) preprocess / train / test / submit CLI of the
+port.
 
 The port's copy of ``cfun_tpu/cli/lits_main.py``, with the same argparse
 surface (the reference's LiTS_2017/LiTS_main.py:401-487, plus the
@@ -7,18 +8,25 @@ one option more, ``--device``:
 
     python -m cfun_tpu_torch.cli.lits_main preprocess --data /raw/LiTS \
         --out /cache
+    python -m cfun_tpu_torch.cli.lits_main train --weights none \
+        --stage beginning --data /cache/ [--epochs 10 --workers 8]
     python -m cfun_tpu_torch.cli.lits_main test --weights ckpt.npz \
         --stage finetune --data /cache/ [--limit 111]
     python -m cfun_tpu_torch.cli.lits_main submit --weights ckpt.npz \
         --data /cache/
 
+``train`` runs ``train/loop.py::train_model`` on ``lits_config(stage)``
+over the cache (volumes 0-110 train, 111-130 validate), from a checkpoint
+or seeded random weights ('none'), writing ``train_metrics.jsonl`` and
+``model.npz`` under ``--logs``; ``--mesh`` with more than one device stops
+(multi-device training is not ported yet).
 ``test`` reports box IoU vs the extended GT box in every stage and
 per-class mask IoU after 'beginning' (LiTS_main.py:285-367), over the
 cached volumes from index ``--limit`` on; ``submit`` exports test-set
 segmentations resized to the original NIfTI geometry (LiTS_main.py:
-370-394).  Both run on CUDA unless ``--device cpu`` is given; without a
-card the command stops with an error.  ``train`` is not ported yet and
-stops with an error.
+370-394).  ``train``, ``test`` and ``submit`` run on CUDA unless
+``--device cpu`` is given; without a card the command stops with an
+error.
 """
 
 from __future__ import annotations
@@ -169,12 +177,13 @@ def run_submit(cfg, params, data_dir: str, start: int = 0,
 
 def main(argv=None):
     """Parse ``argv`` and run the command.  Returns what its
-    ``run_test`` / ``run_submit`` returns (None for ``preprocess``)."""
+    ``train_model`` (the final checkpoint's path) / ``run_test`` /
+    ``run_submit`` returns (None for ``preprocess``)."""
     parser = argparse.ArgumentParser(
-        description="Test the CFUN liver/tumor pipeline on PyTorch + CUDA.")
+        description="Train and test the CFUN liver/tumor pipeline on "
+                    "PyTorch + CUDA.")
     parser.add_argument("command", metavar="<command>",
-                        help="'test', 'submit' or 'preprocess' ('train' "
-                             "is not ported)")
+                        help="'train', 'test', 'submit' or 'preprocess'")
     parser.add_argument("--weights", default="none")
     parser.add_argument("--stage", default="beginning",
                         choices=["beginning", "together", "finetune"])
@@ -188,8 +197,8 @@ def main(argv=None):
     parser.add_argument("--epochs", default=None, type=int)
     parser.add_argument("--workers", default=8, type=int)
     parser.add_argument("--mesh", default=None, metavar="DATA[,SPACE]",
-                        help="train over a device mesh (training is not "
-                             "ported)")
+                        help="train over a device mesh (one device only: "
+                             "multi-device training is not yet ported)")
     parser.add_argument("--exact", action="store_true",
                         help="disable every wire/unmold approximation for "
                              "reference-exact numerics at latency cost")
@@ -209,21 +218,39 @@ def main(argv=None):
     import contextlib
 
     from cfun_tpu_torch.cli import (inference_params, require_device,
-                                    train_not_ported)
+                                    require_one_device)
     from cfun_tpu_torch.config import (exact_reference_overrides,
-                                       lits_inference_config)
+                                       lits_config, lits_inference_config)
     from cfun_tpu_torch.utils.profiling import device_trace
 
-    if args.command == "train":
-        train_not_ported(parser, "lits_main")
-    if args.command not in ("test", "submit"):
+    if args.command not in ("train", "test", "submit"):
         parser.error(f"'{args.command}' is not recognized.")
+    trace_ctx = (device_trace(args.trace) if args.trace
+                 else contextlib.nullcontext())
+    if args.command == "train":
+        mesh = require_one_device(parser, args.mesh)
+        require_device(parser, args.device)
+        cfg = lits_config(args.stage)
+        from cfun_tpu_torch.data.datasets import LiTSDataset
+        from cfun_tpu_torch.train.loop import train_model
+
+        train_ds = LiTSDataset()
+        train_ds.load_lits(args.data, "train")
+        train_ds.prepare()
+        val_ds = LiTSDataset()
+        val_ds.load_lits(args.data, "val")
+        val_ds.prepare()
+        print(cfg.describe())
+        print("Training...")
+        with trace_ctx:
+            return train_model(cfg, train_ds, val_ds, log_dir=args.logs,
+                               weights=args.weights, epochs=args.epochs,
+                               num_workers=args.workers, mesh_spec=mesh,
+                               device=args.device)
     require_device(parser, args.device)
     overrides = exact_reference_overrides() if args.exact else {}
     cfg = lits_inference_config(args.stage, **overrides)
     params = inference_params(cfg, args.weights)
-    trace_ctx = (device_trace(args.trace) if args.trace
-                 else contextlib.nullcontext())
     if args.command == "test":
         print("Testing..." + (" (exact reference mode)" if args.exact else ""))
         with trace_ctx:

@@ -31,6 +31,16 @@
 //     with a fixed affine (no stats pass), one slab at a time.
 //   unmold_nearest_i16: the molded int8 label volume mapped back to the
 //     raw [H0,W0,D0] geometry through per-axis nearest index maps.
+//
+// and of training (the epoch's nearest (H, W) rotation composed into the
+// mold's gather, emitted as the train wire):
+//
+//   heart_train_mold_bf16 / _q8: resize + rotate + z-score to bf16 bits or
+//     the int8 wire; heart_train_labels_i32 their label companion.
+//   lits_train_mold_bf16 / _q8: the raw-slice rotation composed into the
+//     virtual-pad nearest resize, HU window, bf16 bits or the int8 wire;
+//     lits_train_labels_i32 their label companion.
+//   pad_nearest_i32: the virtual-pad nearest resize of a label volume.
 
 #include <algorithm>
 #include <cmath>
@@ -618,6 +628,383 @@ void unmold_nearest_i16(const int8_t* lab, int dm, int hm, int wm,
       }
     }
   }
+}
+
+}  // extern "C" -- reopened below; the templated cores need C++ linkage
+
+// ---------------------------------------------------------------------------
+// Training molds: the serving molds with the epoch's (H, W) rotation
+// composed in, emitting the train wire (bf16 or int8) directly.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Rotated (H, W) index maps: the reference rotates each (H, W) slice
+// nearest with zero fill (model.py:1019-1052, data/resample.py::rotate_hw).
+// The nearest rotation picks whole grid points, so rotate(resize(x)) is
+// the source sampled at the axis maps of the rotated integer coordinates:
+// the rotation composes into the resize gather exactly.  Writes ry / rx
+// (-1 where the rotation maps outside the slice).
+void rotate_maps(int ht, int wt, float angle_deg, int* ry, int* rx) {
+  const double th = angle_deg * 3.14159265358979323846 / 180.0;
+  const double c = std::cos(th), s = std::sin(th);
+  const double cy = (ht - 1) / 2.0, cx = (wt - 1) / 2.0;
+  for (int y = 0; y < ht; ++y) {
+    for (int x = 0; x < wt; ++x) {
+      const double ys = c * (y - cy) - s * (x - cx) + cy;
+      const double xs = s * (y - cy) + c * (x - cx) + cx;
+      const bool inside = ys >= -0.5 && ys <= ht - 0.5 && xs >= -0.5 &&
+                          xs <= wt - 0.5;
+      const int64_t i = static_cast<int64_t>(y) * wt + x;
+      // nearbyint rounds half to even, as np.round does in rotate_hw
+      ry[i] = inside ? std::min(std::max(
+                  static_cast<int>(std::nearbyint(ys)), 0), ht - 1) : -1;
+      rx[i] = inside ? std::min(std::max(
+                  static_cast<int>(std::nearbyint(xs)), 0), wt - 1) : -1;
+    }
+  }
+}
+
+// float32 -> bfloat16 bits, round to nearest even (numpy's
+// astype(bfloat16) and torch's .to(torch.bfloat16))
+inline uint16_t to_bf16(float v) {
+  uint32_t bits;
+  std::memcpy(&bits, &v, 4);
+  const uint32_t rounding = 0x7FFF + ((bits >> 16) & 1);
+  return static_cast<uint16_t>((bits + rounding) >> 16);
+}
+
+// bf16(v), clipped to +-clip_sigma, times scale, truncated toward zero
+// (numpy's astype(int8)): the int8 train wire of a bf16 value
+inline int8_t q8_of_bf16(float v, float clip_sigma, float scale) {
+  const uint32_t b = static_cast<uint32_t>(to_bf16(v)) << 16;
+  float f;
+  std::memcpy(&f, &b, 4);
+  f = std::min(std::max(f, -clip_sigma), clip_sigma);
+  return static_cast<int8_t>(f * scale);
+}
+
+// Shared body of the heart train molds: trilinear resize + nearest (H, W)
+// rotation into tmp ([D, H, W]), returning the z-score (mean, 1/std).
+// Rotation fill voxels are 0 before the z-score, the reference's order
+// (augment, then mold_image; model.py:1555 + 1902-1904).
+void heart_train_mold_core(const float* src, int h0, int w0, int d0,
+                           float* tmp, int dt, int ht, int wt,
+                           float angle_deg, float* out_mean,
+                           float* out_inv) {
+  std::vector<int> ry(static_cast<size_t>(ht) * wt),
+      rx(static_cast<size_t>(ht) * wt);
+  rotate_maps(ht, wt, angle_deg, ry.data(), rx.data());
+  const AxisMap zm(dt, d0), ym(ht, h0), xm(wt, w0);
+  const int64_t hs = static_cast<int64_t>(w0) * d0;
+  constexpr int XB = 128;
+  double sum = 0.0, sumsq = 0.0;
+
+#pragma omp parallel reduction(+ : sum, sumsq)
+  {
+    std::vector<float> tile(static_cast<size_t>(dt) * XB);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xo = 0; xo < xn; ++xo) {
+          const int64_t oi = static_cast<int64_t>(y) * wt + xb + xo;
+          const int my = ry[oi], mx = rx[oi];
+          float* col = tile.data() + xo;
+          if (my < 0 || mx < 0) {
+            for (int z = 0; z < dt; ++z)
+              col[static_cast<size_t>(z) * XB] = 0.0f;
+            continue;
+          }
+          const float fy = ym.f[my], fx = xm.f[mx];
+          const float* r00 = src + ym.i0[my] * hs;
+          const float* r10 = src + ym.i1[my] * hs;
+          const float* p00 = r00 + static_cast<int64_t>(xm.i0[mx]) * d0;
+          const float* p01 = r00 + static_cast<int64_t>(xm.i1[mx]) * d0;
+          const float* p10 = r10 + static_cast<int64_t>(xm.i0[mx]) * d0;
+          const float* p11 = r10 + static_cast<int64_t>(xm.i1[mx]) * d0;
+          for (int z = 0; z < dt; ++z) {
+            const int dz0 = zm.i0[z], dz1 = zm.i1[z];
+            const float fz = zm.f[z];
+            const float c00 = p00[dz0] + fz * (p00[dz1] - p00[dz0]);
+            const float c01 = p01[dz0] + fz * (p01[dz1] - p01[dz0]);
+            const float c10 = p10[dz0] + fz * (p10[dz1] - p10[dz0]);
+            const float c11 = p11[dz0] + fz * (p11[dz1] - p11[dz0]);
+            const float c0 = c00 + fx * (c01 - c00);
+            const float c1 = c10 + fx * (c11 - c10);
+            const float v = c0 + fy * (c1 - c0);
+            col[static_cast<size_t>(z) * XB] = v;
+            sum += v;
+            sumsq += static_cast<double>(v) * v;
+          }
+        }
+        for (int z = 0; z < dt; ++z)
+          std::memcpy(tmp + (static_cast<int64_t>(z) * ht + y) * wt + xb,
+                      tile.data() + static_cast<size_t>(z) * XB,
+                      static_cast<size_t>(xn) * sizeof(float));
+      }
+    }
+  }
+
+  const int64_t n = static_cast<int64_t>(dt) * ht * wt;
+  const double mean = sum / n;
+  double var = sumsq / n - mean * mean;
+  if (var < 1e-12) var = 1.0;
+  *out_inv = static_cast<float>(1.0 / std::sqrt(var));
+  *out_mean = static_cast<float>(mean);
+}
+
+// Shared core of the LiTS train molds: the reference rotates the RAW
+// volume slice-wise (nearest, zero fill) and then pad+resize-molds it
+// (LiTS_2017/model.py:1211-1233 + 1154-1233).  Both maps are nearest
+// gathers, so they compose into one index plan: output (y, x) -> virtual
+// pad nearest source row / column (sy, sx) -> raw rotation map (ry, rx).
+// Neither the rotated raw copy nor the molded f32 volume is made; `quant`
+// emits the wire type.  Fill: a pad voxel is wire 0; a voxel the rotation
+// maps outside the slice is a raw 0, HU-windowed and quantized.
+template <typename OutT, typename Quant>
+void lits_train_mold_core(const float* src, int h0, int w0, int d0, int ph,
+                          int pw, int pd, int oh, int ow, int od, OutT* dst,
+                          int dt, int ht, int wt, float angle_deg, float mn,
+                          float mx, Quant quant) {
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, pd, d0, od, zi.data());
+  nearest_pad_axis(ht, ph, h0, oh, yi.data());
+  nearest_pad_axis(wt, pw, w0, ow, xi.data());
+  std::vector<int> ry(static_cast<size_t>(h0) * w0),
+      rx(static_cast<size_t>(h0) * w0);
+  rotate_maps(h0, w0, angle_deg, ry.data(), rx.data());
+  const float inv = 1.0f / (mx - mn);
+  const float w0f = std::min(std::max((0.0f - mn) * inv, 0.0f), 1.0f);
+  const OutT q_rot = quant(w0f);  // rotation fill, post-window
+  const int64_t hs = static_cast<int64_t>(w0) * d0;
+
+  int zmin = d0, zmax = -1;
+  for (int z = 0; z < dt; ++z)
+    if (zi[z] >= 0) {
+      zmin = std::min(zmin, zi[z]);
+      zmax = std::max(zmax, zi[z]);
+    }
+  const int span = zmax >= zmin ? zmax - zmin + 1 : 0;
+  std::vector<int> zrel(dt);
+  for (int z = 0; z < dt; ++z)
+    zrel[z] = zi[z] >= 0 ? zi[z] - zmin + 1 : 0;
+  constexpr int XB = 128;
+
+#pragma omp parallel
+  {
+    std::vector<OutT> tile(static_cast<size_t>(dt) * XB);
+    std::vector<OutT> buf(static_cast<size_t>(span) + 1);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      const int sy = yi[y];
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xo = 0; xo < xn; ++xo) {
+          const int sx = xi[xb + xo];
+          OutT* col = tile.data() + xo;
+          if (sy < 0 || sx < 0) {  // pad row / column: wire zeros
+            for (int z = 0; z < dt; ++z)
+              col[static_cast<size_t>(z) * XB] = OutT(0);
+            continue;
+          }
+          const int64_t ri = static_cast<int64_t>(sy) * w0 + sx;
+          const int my = ry[ri], mxx = rx[ri];
+          if (my < 0 || mxx < 0) {  // rotated outside the raw slice
+            for (int z = 0; z < dt; ++z)
+              col[static_cast<size_t>(z) * XB] =
+                  zrel[z] ? q_rot : OutT(0);
+            continue;
+          }
+          const float* c =
+              src + my * hs + static_cast<int64_t>(mxx) * d0 + zmin;
+          buf[0] = OutT(0);
+          OutT* b = buf.data() + 1;
+          for (int s = 0; s < span; ++s) {  // contiguous: autovectorizes
+            const float t = (c[s] - mn) * inv;
+            b[s] = quant(std::min(std::max(t, 0.0f), 1.0f));
+          }
+          for (int z = 0; z < dt; ++z)
+            col[static_cast<size_t>(z) * XB] = buf[zrel[z]];
+        }
+        for (int z = 0; z < dt; ++z)
+          std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt + xb,
+                      tile.data() + static_cast<size_t>(z) * XB,
+                      static_cast<size_t>(xn) * sizeof(OutT));
+      }
+    }
+  }
+}
+
+// Label gather shared by the heart and LiTS label companions and the
+// virtual-pad label mold: out (z, y, x) = src[yi[my], xi[mx], zi[z]] with
+// (my, mx) the (y, x) of the output rotated (or itself: ry / rx null), 0
+// where any map is -1.  Same y-outer / x-block / z-inner tiling as the
+// molds.  For LiTS the rotation acts on the raw slice, after the pad map
+// (rot_first = false); for the heart on the output grid, before the
+// resize map (rot_first = true).
+void gather_labels_i32(const int32_t* src, int w0, int d0, int32_t* dst,
+                       int dt, int ht, int wt, const int* zi, const int* yi,
+                       const int* xi, const int* ry, const int* rx,
+                       int rot_w, bool rot_first) {
+  const int64_t hs = static_cast<int64_t>(w0) * d0;
+  constexpr int XB = 128;
+
+#pragma omp parallel
+  {
+    std::vector<int32_t> tile(static_cast<size_t>(dt) * XB);
+#if defined(_OPENMP)
+#pragma omp for schedule(static)
+#endif
+    for (int y = 0; y < ht; ++y) {
+      for (int xb = 0; xb < wt; xb += XB) {
+        const int xn = std::min(XB, wt - xb);
+        for (int xo = 0; xo < xn; ++xo) {
+          const int x = xb + xo;
+          int sy = -1, sx = -1;
+          if (rot_first) {
+            const int64_t oi = static_cast<int64_t>(y) * wt + x;
+            const int my = ry[oi], mx = rx[oi];
+            if (my >= 0 && mx >= 0) {
+              sy = yi[my];
+              sx = xi[mx];
+            }
+          } else if (yi[y] >= 0 && xi[x] >= 0) {
+            sy = yi[y];
+            sx = xi[x];
+            if (ry != nullptr) {
+              const int64_t ri = static_cast<int64_t>(sy) * rot_w + sx;
+              sy = ry[ri];
+              sx = rx[ri];
+            }
+          }
+          int32_t* col = tile.data() + xo;
+          if (sy < 0 || sx < 0) {
+            for (int z = 0; z < dt; ++z)
+              col[static_cast<size_t>(z) * XB] = 0;
+            continue;
+          }
+          const int32_t* c = src + sy * hs + static_cast<int64_t>(sx) * d0;
+          for (int z = 0; z < dt; ++z) {
+            const int sz = zi[z];
+            col[static_cast<size_t>(z) * XB] = sz < 0 ? 0 : c[sz];
+          }
+        }
+        for (int z = 0; z < dt; ++z)
+          std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt + xb,
+                      tile.data() + static_cast<size_t>(z) * XB,
+                      static_cast<size_t>(xn) * sizeof(int32_t));
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Heart train mold to bf16 bits: resize + rotate + z-score, one scale
+// pass over tmp (the reference's resize / rotate / normalize / astype
+// chain of four full-volume passes).  dst: [dt, ht, wt] uint16.
+void heart_train_mold_bf16(const float* src, int h0, int w0, int d0,
+                           uint16_t* dst, float* tmp, int dt, int ht,
+                           int wt, float angle_deg) {
+  float m, inv;
+  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, &m,
+                        &inv);
+  const int64_t n = static_cast<int64_t>(dt) * ht * wt;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) dst[i] = to_bf16((tmp[i] - m) * inv);
+}
+
+// Heart train mold to the int8 wire (Config.train_wire_int8): the
+// z-scored voxel is bf16-rounded first (the wire quantizes the bf16 image
+// it would otherwise ship), then clipped, scaled in f32 and truncated.
+void heart_train_mold_q8(const float* src, int h0, int w0, int d0,
+                         int8_t* dst, float* tmp, int dt, int ht, int wt,
+                         float angle_deg, float clip_sigma, float scale) {
+  float m, inv;
+  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, &m,
+                        &inv);
+  const int64_t n = static_cast<int64_t>(dt) * ht * wt;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i)
+    dst[i] = q8_of_bf16((tmp[i] - m) * inv, clip_sigma, scale);
+}
+
+// Label companion of the heart train molds: nearest resize + the same
+// nearest (H, W) rotation, zero (background) fill, int32 [D, H, W].
+void heart_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
+                            int32_t* dst, int dt, int ht, int wt,
+                            float angle_deg) {
+  std::vector<int> ry(static_cast<size_t>(ht) * wt),
+      rx(static_cast<size_t>(ht) * wt);
+  rotate_maps(ht, wt, angle_deg, ry.data(), rx.data());
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, d0, d0, 0, zi.data());
+  nearest_pad_axis(ht, h0, h0, 0, yi.data());
+  nearest_pad_axis(wt, w0, w0, 0, xi.data());
+  gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
+                    xi.data(), ry.data(), rx.data(), wt, true);
+}
+
+// LiTS train mold to the int8 wire: rotate_hw(raw) -> lits_mold ->
+// astype(bfloat16) -> clip(+-clip_sigma) -> *scale -> astype(int8), in
+// one gather.
+void lits_train_mold_q8(const float* src, int h0, int w0, int d0, int ph,
+                        int pw, int pd, int oh, int ow, int od, int8_t* dst,
+                        int dt, int ht, int wt, float angle_deg, float mn,
+                        float mx, float clip_sigma, float scale) {
+  lits_train_mold_core<int8_t>(
+      src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst, dt, ht, wt, angle_deg,
+      mn, mx, [clip_sigma, scale](float v) {
+        return q8_of_bf16(v, clip_sigma, scale);
+      });
+}
+
+// LiTS train mold to bf16 bits (train_wire_int8 off).
+void lits_train_mold_bf16(const float* src, int h0, int w0, int d0, int ph,
+                          int pw, int pd, int oh, int ow, int od,
+                          uint16_t* dst, int dt, int ht, int wt,
+                          float angle_deg, float mn, float mx) {
+  lits_train_mold_core<uint16_t>(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
+                                 dst, dt, ht, wt, angle_deg, mn, mx,
+                                 [](float v) { return to_bf16(v); });
+}
+
+// Label companion of the LiTS train molds: the same composed rotation +
+// pad + resize nearest plan over the int32 mask, zero fill for both the
+// pad and the rotation's outside.
+void lits_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
+                           int ph, int pw, int pd, int oh, int ow, int od,
+                           int32_t* dst, int dt, int ht, int wt,
+                           float angle_deg) {
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, pd, d0, od, zi.data());
+  nearest_pad_axis(ht, ph, h0, oh, yi.data());
+  nearest_pad_axis(wt, pw, w0, ow, xi.data());
+  std::vector<int> ry(static_cast<size_t>(h0) * w0),
+      rx(static_cast<size_t>(h0) * w0);
+  rotate_maps(h0, w0, angle_deg, ry.data(), rx.data());
+  gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
+                    xi.data(), ry.data(), rx.data(), w0, false);
+}
+
+// Virtual-pad nearest resize of an int32 label volume (no rotation):
+// the label mold of LiTS, and of the heart with pad == source shape.
+void pad_nearest_i32(const int32_t* src, int h0, int w0, int d0, int ph,
+                     int pw, int pd, int oh, int ow, int od, int32_t* dst,
+                     int dt, int ht, int wt) {
+  std::vector<int> zi(dt), yi(ht), xi(wt);
+  nearest_pad_axis(dt, pd, d0, od, zi.data());
+  nearest_pad_axis(ht, ph, h0, oh, yi.data());
+  nearest_pad_axis(wt, pw, w0, ow, xi.data());
+  gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
+                    xi.data(), nullptr, nullptr, 0, false);
 }
 
 int cfun_native_num_threads() {

@@ -1,7 +1,7 @@
 """Host-side separable volume resampling (NumPy; a copy of the parts of
 ``cfun_tpu/data/resample.py`` the port's detector uses: the heart's
-trilinear resize, the LiTS virtual-pad nearest mold and the overlap-tile
-unmold of the exact path).
+trilinear resize, the LiTS virtual-pad nearest mold, the overlap-tile
+unmold of the exact path, and the train feeder's slice rotation).
 
 Axis-separable linear / nearest interpolation with the half-pixel
 convention ``src = (i + 0.5) * L_in / L_out - 0.5`` and no anti-aliasing,
@@ -91,6 +91,60 @@ def pad_resize_nearest(vol_hwd: np.ndarray, pad_shape_hwd: Tuple[int, int, int],
     out[:, ~vx] = 0
     out[:, :, ~vz] = 0
     return out
+
+
+_ROTATE_GRID_CACHE: dict = {}
+
+
+def _rotate_grid(h: int, w: int):
+    """The float32 (y, x) index grids of an [h, w] slice (cached)."""
+    key = (h, w)
+    if key not in _ROTATE_GRID_CACHE:
+        if len(_ROTATE_GRID_CACHE) > 8:
+            _ROTATE_GRID_CACHE.clear()
+        _ROTATE_GRID_CACHE[key] = np.meshgrid(
+            np.arange(h, dtype=np.float32),
+            np.arange(w, dtype=np.float32), indexing="ij")
+    return _ROTATE_GRID_CACHE[key]
+
+
+def rotate_hw(vol: np.ndarray, angle_deg: float, order: int = 0) -> np.ndarray:
+    """Rotate every [H, W] slice about the slice centre (the reference's
+    slice-wise imgaug Affine augmentation, model.py:1019-1052), constant-0
+    fill.  vol: [H, W, ...]; the rotation acts on axes (0, 1).  ``order``
+    0 is nearest with round-half-to-even, 1 bilinear."""
+    if angle_deg == 0:
+        return vol
+    h, w = vol.shape[:2]
+    theta = np.deg2rad(angle_deg)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy, xx = _rotate_grid(h, w)
+    # inverse mapping: output (y, x) samples the input rotated by -theta
+    cos_t, sin_t = np.cos(theta), np.sin(theta)
+    ys = cos_t * (yy - cy) - sin_t * (xx - cx) + cy
+    xs = sin_t * (yy - cy) + cos_t * (xx - cx) + cx
+    inside = (ys >= -0.5) & (ys <= h - 0.5) & (xs >= -0.5) & (xs <= w - 0.5)
+    if order == 0:
+        yi = np.clip(np.round(ys).astype(np.int64), 0, h - 1)
+        xi = np.clip(np.round(xs).astype(np.int64), 0, w - 1)
+        out = vol[yi, xi]
+    else:
+        y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
+        x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
+        y1 = np.minimum(y0 + 1, h - 1)
+        x1 = np.minimum(x0 + 1, w - 1)
+        fy = np.clip(ys, 0, h - 1) - y0
+        fx = np.clip(xs, 0, w - 1) - x0
+        if vol.ndim > 2:
+            fy, fx = fy[..., None], fx[..., None]
+        v00 = vol[y0, x0].astype(np.float32)
+        v01 = vol[y0, x1].astype(np.float32)
+        v10 = vol[y1, x0].astype(np.float32)
+        v11 = vol[y1, x1].astype(np.float32)
+        out = (v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx +
+               v10 * fy * (1 - fx) + v11 * fy * fx)
+    mask = inside if vol.ndim == 2 else inside[..., None]
+    return np.where(mask, out, 0).astype(vol.dtype)
 
 
 def trilinear_into_box(crop: np.ndarray, box: np.ndarray,

@@ -1,5 +1,7 @@
 """ctypes bindings of the port's host ops (``csrc/host_ops.cc``): the
-native mold and unmold of heart and LiTS serving.
+native mold and unmold of heart and LiTS serving, and the train molds
+(the epoch's rotation composed into the mold, straight to the train
+wire, with their label companions).
 
 The library is built with ``g++`` at first use (``_build.build_host``)
 and loaded with ctypes' default ``RTLD_LOCAL``, so its symbols stay its
@@ -57,6 +59,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.unmold_nearest_i16.argtypes = [i8p, i, i, i, i32p, i32p, i32p,
                                        i16p, i, i, i]
     lib.unmold_nearest_i16.restype = None
+    u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+    lib.heart_train_mold_bf16.argtypes = [f32p, i, i, i, u16p, f32p, i, i,
+                                          i, f]
+    lib.heart_train_mold_bf16.restype = None
+    lib.heart_train_mold_q8.argtypes = [f32p, i, i, i, i8p, f32p, i, i, i,
+                                        f, f, f]
+    lib.heart_train_mold_q8.restype = None
+    lib.heart_train_labels_i32.argtypes = [i32p, i, i, i, i32p, i, i, i, f]
+    lib.heart_train_labels_i32.restype = None
+    lib.lits_train_mold_q8.argtypes = [f32p] + [i] * 9 + [i8p, i, i, i] + \
+        [f] * 5
+    lib.lits_train_mold_q8.restype = None
+    lib.lits_train_mold_bf16.argtypes = [f32p] + [i] * 9 + [u16p, i, i, i] \
+        + [f] * 3
+    lib.lits_train_mold_bf16.restype = None
+    lib.lits_train_labels_i32.argtypes = [i32p] + [i] * 9 + [i32p, i, i, i,
+                                                             f]
+    lib.lits_train_labels_i32.restype = None
+    lib.pad_nearest_i32.argtypes = [i32p] + [i] * 9 + [i32p, i, i, i]
+    lib.pad_nearest_i32.restype = None
     lib.cfun_native_num_threads.argtypes = []
     lib.cfun_native_num_threads.restype = ctypes.c_int
 
@@ -315,3 +337,125 @@ def unmold_nearest_labels(lab_dhw: np.ndarray, mz: np.ndarray,
     library().unmold_nearest_i16(lab, dm, hm, wm, mz, my, mx, out,
                                  my.size, mx.size, mz.size)
     return out
+
+
+# ---- training molds ----------------------------------------------------------
+#
+# The bf16 train wire comes out as the bfloat16 bits in uint16 (NumPy has
+# no bfloat16): ``torch.from_numpy(u16).view(torch.bfloat16)`` is the
+# image.
+
+
+def _labels_source(mask_hwd: np.ndarray) -> Tuple[np.ndarray, int, int, int]:
+    src = np.ascontiguousarray(mask_hwd, np.int32)
+    if src.ndim != 3 or min(src.shape) < 1:
+        raise ValueError(f"labels must be a non-empty [H, W, D] volume, got "
+                         f"shape {src.shape}")
+    return (src, *src.shape)
+
+
+def pad_nearest_labels(mask_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+                       offsets_hwd) -> np.ndarray:
+    """[H, W, D] int labels -> int32 [Dt, Ht, Wt]: a virtual centre-pad to
+    ``pad_shape_hwd`` at ``offsets_hwd`` (pad voxels 0) and a nearest
+    resize.  With the pad equal to the source shape and zero offsets it is
+    the plain nearest resize of the heart's label mold."""
+    src, h0, w0, d0 = _labels_source(mask_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    dst = np.empty((dt, ht, wt), np.int32)
+    library().pad_nearest_i32(src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst,
+                              dt, ht, wt)
+    return dst
+
+
+def heart_train_mold(src_hwd: np.ndarray, out_shape_dhw,
+                     angle_deg: float) -> np.ndarray:
+    """The heart train mold in one native pass: trilinear resize, the
+    nearest (H, W) rotation by ``angle_deg`` (zero fill before the
+    z-score), z-score over the molded volume, bf16 -> uint16 bits
+    [Dt, Ht, Wt].  The statistics sum in double (NumPy's z-score in
+    float32), so ~1e-4 of the voxels can differ from the NumPy chain by
+    one bf16 ulp; the index maps are exact."""
+    src, h0, w0, d0 = _source(src_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    dst = np.empty((dt, ht, wt), np.uint16)
+    tmp = np.empty((dt, ht, wt), np.float32)
+    library().heart_train_mold_bf16(src, h0, w0, d0, dst, tmp, dt, ht, wt,
+                                    float(angle_deg))
+    return dst
+
+
+def heart_train_mold_q8(src_hwd: np.ndarray, out_shape_dhw,
+                        angle_deg: float, clip_sigma: float,
+                        scale: float) -> np.ndarray:
+    """The int8 train wire of :func:`heart_train_mold`: ``astype(int8)``
+    of ``clip(bf16(z), +-clip_sigma) * scale``, the bf16 image quantized.
+    Returns int8 [Dt, Ht, Wt]."""
+    src, h0, w0, d0 = _source(src_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    dst = np.empty((dt, ht, wt), np.int8)
+    tmp = np.empty((dt, ht, wt), np.float32)
+    library().heart_train_mold_q8(src, h0, w0, d0, dst, tmp, dt, ht, wt,
+                                  float(angle_deg), float(clip_sigma),
+                                  float(scale))
+    return dst
+
+
+def heart_train_labels(mask_hwd: np.ndarray, out_shape_dhw,
+                       angle_deg: float) -> np.ndarray:
+    """Label companion of :func:`heart_train_mold`: the nearest resize and
+    the same nearest rotation (zero fill) -> int32 [Dt, Ht, Wt]."""
+    src, h0, w0, d0 = _labels_source(mask_hwd)
+    dt, ht, wt = _out_shape(out_shape_dhw)
+    dst = np.empty((dt, ht, wt), np.int32)
+    library().heart_train_labels_i32(src, h0, w0, d0, dst, dt, ht, wt,
+                                     float(angle_deg))
+    return dst
+
+
+def lits_train_mold_q8(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+                       offsets_hwd, angle_deg: float, hu_window,
+                       clip_sigma: float, scale: float) -> np.ndarray:
+    """The LiTS train mold to the int8 wire in one gather: the nearest
+    rotation of the raw slices composed into the virtual-pad nearest
+    resize, then the HU window, bf16 rounding and the quantization, once
+    a touched source voxel.  Equal to ``rotate_hw(raw)`` -> the LiTS mold
+    -> bf16 -> clip -> ``* scale`` -> ``astype(int8)`` (reference
+    LiTS_2017/model.py:1211-1233).  Returns int8 [Dt, Ht, Wt]."""
+    src, h0, w0, d0 = _source(src_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    mn, mx = (float(v) for v in hu_window)
+    dst = np.empty((dt, ht, wt), np.int8)
+    library().lits_train_mold_q8(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
+                                 dst, dt, ht, wt, float(angle_deg), mn, mx,
+                                 float(clip_sigma), float(scale))
+    return dst
+
+
+def lits_train_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+                    offsets_hwd, angle_deg: float, hu_window) -> np.ndarray:
+    """The bf16 form of :func:`lits_train_mold_q8` (``train_wire_int8``
+    off): bfloat16 bits as uint16 [Dt, Ht, Wt]."""
+    src, h0, w0, d0 = _source(src_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    mn, mx = (float(v) for v in hu_window)
+    dst = np.empty((dt, ht, wt), np.uint16)
+    library().lits_train_mold_bf16(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
+                                   dst, dt, ht, wt, float(angle_deg), mn, mx)
+    return dst
+
+
+def lits_train_labels(mask_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
+                      offsets_hwd, angle_deg: float) -> np.ndarray:
+    """Label companion of the LiTS train molds: the same composed
+    rotation + pad + nearest plan over the labels -> int32 [Dt, Ht, Wt]."""
+    src, h0, w0, d0 = _labels_source(mask_hwd)
+    (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
+        pad_shape_hwd, out_shape_dhw, offsets_hwd)
+    dst = np.empty((dt, ht, wt), np.int32)
+    library().lits_train_labels_i32(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
+                                    dst, dt, ht, wt, float(angle_deg))
+    return dst

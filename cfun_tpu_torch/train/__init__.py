@@ -1,2 +1,2 @@
-"""Training of the port: the six losses, the detection targets and one
-SGD step (``cfun_tpu/train/``).  The loop is not ported yet."""
+"""Training of the port: the six losses, the detection targets, the SGD
+step and the epoch loop (``cfun_tpu/train/``)."""

@@ -36,6 +36,8 @@ from cfun_tpu_torch.config import Config
 from cfun_tpu_torch.models import cfun
 from cfun_tpu_torch.models.heads import apply_classifier, apply_mask_head
 from cfun_tpu_torch.models.unet3d import dropout_mask_shapes
+from cfun_tpu_torch.ops.augment import (AugmentDraws, AugTrainBatch,
+                                        device_augment, draw_augment)
 from cfun_tpu_torch.ops.sample3d import roi_align
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
 from cfun_tpu_torch.train import losses as L
@@ -77,17 +79,24 @@ def unpack_labels_w(packed: torch.Tensor) -> torch.Tensor:
 
 
 class TrainDraws(NamedTuple):
-    """A step's random draws: the ROI sampler's uniforms and the five
-    dropout sites' keep masks (None without dropout)."""
+    """A step's random draws: the ROI sampler's uniforms, the five
+    dropout sites' keep masks (None without dropout) and, for an
+    ``AugTrainBatch``, the device augment's RPN subsample uniforms."""
     targets: TargetDraws
     dropout_masks: Optional[List[torch.Tensor]]
+    augment: Optional[AugmentDraws] = None
 
 
 def draw_train(cfg: Config, generator: torch.Generator,
                device) -> TrainDraws:
     """Draw a step's randomness from ``generator`` (on its own device, in
-    a fixed order: the positives' uniforms, the negatives', the five keep
-    masks) and place it on ``device``."""
+    a fixed order: with ``cfg.augment_on_device`` the augment's two
+    uniforms over the anchors, then the ROI sampler's positives' and
+    negatives' uniforms, then the five keep masks) and place it on
+    ``device``."""
+    augment = None
+    if cfg.augment_on_device:
+        augment = draw_augment(cfg.num_anchors, generator, device)
     targets = draw_targets(cfg.post_nms_rois_training, generator, device)
     masks = None
     if stage_flags(cfg)[1] and cfg.unet_dropout_rate > 0.0:
@@ -95,7 +104,7 @@ def draw_train(cfg: Config, generator: torch.Generator,
                                  device=device)
                  for shape in dropout_mask_shapes(cfg.num_positive_rois,
                                                   cfg.unet_base_channels)]
-    return TrainDraws(targets, masks)
+    return TrainDraws(targets, masks, augment)
 
 
 class TrainState(NamedTuple):
@@ -149,7 +158,17 @@ class SGDChain:
     max_norm`` (``clip_grad_norm_`` adds 1e-6 to the norm); torch's SGD
     adds the decay to the clipped gradient, as the chain does.  The
     accumulated gradient is optax's running mean ``acc + (g - acc) /
-    (n + 1)``."""
+    (n + 1)``.
+
+    Its state reads and writes as the JAX optimizer's state leaves
+    (``state_leaves`` / ``load_state_leaves``, a checkpoint's ``opt/{i}``):
+    the SGD momentum trace of every parameter in the JAX tree's order,
+    and under ``MultiSteps`` first its two counters and after the traces
+    its accumulator.  A momentum buffer is the trace (torch adds the
+    decay before the momentum, as the chain does).  Frozen leaves have no
+    state here: their traces are written as zeros (the JAX package's hold
+    ``wd * p`` sums there, which never move a parameter) and dropped on
+    read."""
 
     def __init__(self, cfg: Config, params):
         leaves = weights._leaves(params)
@@ -157,6 +176,12 @@ class SGDChain:
         decay = weights._leaves(decay_mask(params))
         self.paths = [p for p in leaves if train[p]]
         self.leaves = [leaves[p] for p in self.paths]
+        # every leaf, trainable or not, in the JAX tree's order, and its
+        # shape in the JAX layout
+        self.tree_paths = weights.tree_order(params)
+        self._jax_shapes = {p: weights.jax_shape(p, leaves[p].shape)
+                            for p in self.tree_paths}
+        self.gradient_step = 0
         groups = [
             {"params": [leaves[p] for p in self.paths if decay[p]],
              "weight_decay": cfg.weight_decay},
@@ -193,7 +218,80 @@ class SGDChain:
         self.sgd.step()
         for leaf in self.leaves:
             leaf.grad = None
+        self.gradient_step += 1
         return True
+
+    def host_state(self) -> "HostOptState":
+        """A host copy of the optimizer's state (the momentum buffers and
+        the accumulator as CPU tensors, the counters), whose
+        ``state_leaves`` builds the checkpoint's leaves: a snapshot the
+        next step's in-place updates do not touch."""
+        def fetch(ts):
+            return {p: t.detach().to("cpu", copy=True)
+                    for p, t in ts if t is not None}
+
+        return HostOptState(
+            self.tree_paths, self._jax_shapes, self.k, self.mini_step,
+            self.gradient_step,
+            fetch((p, self.sgd.state.get(leaf, {}).get("momentum_buffer"))
+                  for p, leaf in zip(self.paths, self.leaves)),
+            fetch(zip(self.paths, self.acc or [])))
+
+    def state_leaves(self) -> List[np.ndarray]:
+        """The JAX optimizer's state leaves (see :class:`HostOptState`)."""
+        return self.host_state().state_leaves()
+
+    def load_state_leaves(self, stored: List[np.ndarray]) -> bool:
+        """Restore from the JAX optimizer's state leaves (see
+        :meth:`state_leaves`).  Returns False, and keeps the state as it
+        is, when their count is not this optimizer's (the JAX package's
+        ``checkpoint.load`` drops such a slot the same way)."""
+        n = len(self.tree_paths)
+        if len(stored) != (n if self.k == 1 else 2 + 2 * n):
+            return False
+        if self.k > 1:
+            self.mini_step = int(stored[0])
+            self.gradient_step = int(stored[1])
+            traces, accs = stored[2:2 + n], stored[2 + n:]
+        else:
+            traces, accs = stored, None
+        at = {p: i for i, p in enumerate(self.tree_paths)}
+        for p, leaf in zip(self.paths, self.leaves):
+            self.sgd.state[leaf]["momentum_buffer"] = weights._convert(
+                p, traces[at[p]]).to(leaf.device)
+        self.acc = None
+        if accs is not None and self.mini_step > 0:
+            self.acc = [weights._convert(p, accs[at[p]]).to(leaf.device)
+                        for p, leaf in zip(self.paths, self.leaves)]
+        return True
+
+
+class HostOptState(NamedTuple):
+    """A host copy of an ``SGDChain``'s state, by tree path."""
+    tree_paths: List[str]
+    jax_shapes: Dict[str, Tuple[int, ...]]
+    k: int
+    mini_step: int
+    gradient_step: int
+    traces: Dict[str, torch.Tensor]
+    acc: Dict[str, torch.Tensor]
+
+    def state_leaves(self) -> List[np.ndarray]:
+        """The JAX optimizer's state leaves, float32 numpy in the JAX
+        layouts: every parameter's trace in the JAX tree's order (zeros
+        for a frozen leaf, or before the first update), under
+        ``MultiSteps`` after its two int32 counters and before its
+        accumulator."""
+        def per_leaf(ts):
+            return [weights._to_jax_layout(p, ts[p]) if p in ts
+                    else np.zeros(self.jax_shapes[p], np.float32)
+                    for p in self.tree_paths]
+
+        if self.k == 1:
+            return per_leaf(self.traces)
+        return ([np.asarray(self.mini_step, np.int32),
+                 np.asarray(self.gradient_step, np.int32)]
+                + per_leaf(self.traces) + per_leaf(self.acc))
 
 
 def make_optimizer(cfg: Config, params) -> SGDChain:
@@ -284,19 +382,40 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     return L.weighted_total(out, cfg), out
 
 
+def train_forward_any(params, batch, anchors: torch.Tensor, cfg: Config,
+                      draws: Optional[TrainDraws] = None,
+                      generator: Optional[torch.Generator] = None,
+                      nms: cfun.NmsFn = sorted_nms):
+    """:func:`train_forward` that also takes an ``AugTrainBatch``
+    (``cfg.augment_on_device``): the rotation, the re-z-score and the RPN
+    targets run on the device first (``ops/augment.py``)."""
+    if isinstance(batch, AugTrainBatch):
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_forward needs draws or a generator")
+            draws = draw_train(cfg, generator, batch.image.device)
+        if draws.augment is None:
+            raise ValueError("an AugTrainBatch needs the augment's draws "
+                             "(cfg.augment_on_device)")
+        batch = device_augment(batch, anchors, cfg, draws.augment)
+    return train_forward(params, batch, anchors, cfg, draws=draws,
+                         generator=generator, nms=nms)
+
+
 def loss_and_grads(params, batch: TrainBatch, anchors: torch.Tensor,
                    cfg: Config, draws: Optional[TrainDraws] = None,
                    generator: Optional[torch.Generator] = None,
                    nms: cfun.NmsFn = sorted_nms):
-    """:func:`train_forward` and the gradients of its total with respect
+    """:func:`train_forward_any` and the gradients of its total with respect
     to the trainable leaves: (total, parts, {tree path: gradient}), a
     leaf the loss does not reach getting zeros (its update is then the
     weight decay alone, as in the JAX package)."""
     flat = weights._leaves(params)
     train = weights._leaves(trainable_mask(params, cfg))
     paths = [p for p in flat if train[p]]
-    total, parts = train_forward(params, batch, anchors, cfg, draws=draws,
-                                 generator=generator, nms=nms)
+    total, parts = train_forward_any(params, batch, anchors, cfg,
+                                     draws=draws, generator=generator,
+                                     nms=nms)
     leaves = [flat[p] for p in paths]
     grads = torch.autograd.grad(total, leaves, allow_unused=True) \
         if total.requires_grad else [None] * len(leaves)
@@ -322,7 +441,8 @@ def make_train_step(cfg: Config, anchors):
     ``init_state(params)`` marks the trainable leaves ``requires_grad``
     (the others not) and builds the optimizer.  ``step(state, batch,
     draws=None, generator=None, nms=sorted_nms)`` runs one step on the
-    batch's device and returns (state, metrics)."""
+    batch's device (a ``TrainBatch`` or an ``AugTrainBatch``) and returns
+    (state, metrics)."""
     anchors = torch.as_tensor(np.asarray(anchors, np.float32))
     on_device: Dict[torch.device, torch.Tensor] = {}
 

@@ -1,2 +1,2 @@
-"""Utilities of the port: metrics, checkpoint loading, reference
-checkpoint conversion, profiling."""
+"""Utilities of the port: metrics, checkpoints, reference checkpoint
+conversion, profiling, training logs."""

@@ -22,7 +22,7 @@ a parameter the tree does not hold and a shape that differs all raise.
 from __future__ import annotations
 
 import json
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,21 @@ def _leaves(tree, prefix: str = "") -> Dict[str, object]:
     for k, v in items:
         flat.update(_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
     return flat
+
+
+def tree_order(tree, prefix: str = "") -> List[str]:
+    """The tree's leaf paths in the JAX package's ``tree_leaves`` order:
+    dict keys sorted, list items in order."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [prefix]
+    out: List[str] = []
+    for k, v in items:
+        out += tree_order(v, f"{prefix}/{k}" if prefix else str(k))
+    return out
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
@@ -195,6 +210,16 @@ def init_params(cfg, seed: int = 0) -> dict:
         else:
             flat[key] = torch.zeros(shape)
     return _unflatten(flat)
+
+
+def jax_shape(key: str, shape) -> Tuple[int, ...]:
+    """The shape in the JAX package's layout of a port leaf of ``shape``."""
+    shape = tuple(shape)
+    if key.endswith("/w"):
+        if len(shape) == 5:
+            return (shape[2], shape[3], shape[4], shape[1], shape[0])
+        return shape[::-1]
+    return shape
 
 
 def _to_jax_layout(key: str, t: torch.Tensor) -> np.ndarray:

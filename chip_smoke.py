@@ -4,16 +4,19 @@
     python3 chip_smoke.py            # every phase, both model families
     python3 chip_smoke.py heart      # the shared phases + the heart paths
     python3 chip_smoke.py lits       # the shared phases + the LiTS paths
+    python3 chip_smoke.py schedule   # env build k1, then phase schedule
+    python3 chip_smoke.py schedule START.npz  # the same from a checkpoint
 
 With no argument it needs all three checkpoints (weights/heart_synth.npz,
 weights/heart_synth_ft.npz, weights/lits_synth.npz); ``heart`` needs the
-first two, ``lits`` the third.  A missing checkpoint is an error (exit 1).
+first two, ``lits`` the third, ``schedule`` none.  A missing checkpoint is
+an error (exit 1).
 
 Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
 (shared: env build k1 k2 train_tiny; heart: serve serve_fused serve_ft
-cli_heart train_heart; LiTS: serve_lits serve_lits_fused cli_lits
-train_lits; then stream k2_served profile small, each on the families
-that ran):
+cli_heart train_heart train_loop_heart; LiTS: serve_lits serve_lits_fused
+cli_lits train_lits train_loop_lits; then stream k2_served profile small,
+each on the families that ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -89,6 +92,40 @@ that ran):
           frozen leaves unchanged, the loss falls); the median s/step,
           max_memory_allocated and K1 at the step's NMS inputs beside its
           bound, with the card's clocks before and after
+  train_loop_heart  the training loop (cfun_tpu_torch/train/loop.py) on
+          the card, three runs, each with every launch count set to 0
+          before and read after (K1 exactly once a step and once a
+          validation forward at 1000->500, its plain version and K2
+          never, K1 equal to its plain version on the first and the last
+          step's NMS inputs): the heart CLI's 'train --stage beginning'
+          in this process from weights/heart_synth.npz for one epoch (its
+          epoch 60 + 1: 45 steps through the threaded feeder and the
+          native bf16 train mold, no validation) on the synthetic train
+          set of benchmarks/train_synth.py (8 volumes, seed 1000) and 13
+          validation volumes (seed 2000), 144x144x96, written as .nii
+          with a manifest; train_model's short schedule (5 steps an
+          epoch, validation every epoch): two identical 3-epoch runs (their
+          spread), 2 epochs, and 1 more resumed from that checkpoint, held
+          to 4x the spread; and --aug-device --device-cache for 2 epochs
+          of 8 steps (no H2D byte in epoch 2, by the loop's count and the
+          profiler's copies).  Each run prints s/step (median after the
+          first, the first; stream time start to start), the feeder's item
+          ms (load / mold / labels / RPN targets), the loop's wait on it a
+          step, H2D bytes a step, busy / idle and the H2D copies' overlap
+          with kernels over a profiled window of steps, the peak memory,
+          the clocks; the CLI run also save / save_async ms and bytes
+  train_loop_lits  the LiTS CLI's 'train --stage beginning' from
+          weights/lits_synth.npz for one epoch (its epoch 6 + 1: 100
+          steps) on the .npy cache of seeded 400x400x280 volumes (train
+          ids 0-3, validation id 111), with train_loop_heart's checks and
+          numbers
+  schedule  (only with the argument 'schedule') the JAX package's
+          synthetic heart schedule (benchmarks/train_synth.py's defaults:
+          60 epochs of 15 steps, seed 0, the bf16 wire, from seeded
+          weights, or from START.npz), then the held-out evaluation of
+          cli_heart's 12 volumes on the weights it wrote: the loss curve,
+          Dice and box IoU beside the JAX package's recorded curve and
+          0.6691 / 0.8875
   serve_lits  LiTS inference at full width (256x320x320, P3D35,
           lits_inference_config('finetune'): FPN 160, U-Net base 32 at
           batch 10, the device overlap paste, the 2-bit wire) with
@@ -155,7 +192,7 @@ Then a ``{"serving": ...}`` JSON line, one with the kernels, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit
 code is non-zero; without a CUDA device the script exits 2 before any
-phase.  A watchdog ends a hung run after 600 s with a traceback.
+phase.  A watchdog ends a hung run after 900 s with a traceback.
 """
 
 from __future__ import annotations
@@ -173,7 +210,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 H100_F32_OPS_PER_S = 67e12   # H100 SXM data sheet, f32 outside tensor cores
 H100_BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -1676,8 +1713,8 @@ def cli_heart_phase(tmp, counters, k1_per_request):
     stats.update(test_volumes_ms=vols, test_written_bytes=dir_bytes(out_dir))
 
     # the exports against Detector.detect on the same card and weights
-    params, _ = checkpoint.load_any(wpath, cfg,
-                                    weights.init_params(cfg, seed=0))
+    params, _, _ = checkpoint.load_any(wpath, cfg,
+                                       weights.init_params(cfg, seed=0))
     det = Detector(cfg, params)
     files = {name.split("_", 1)[1]: name for name in os.listdir(out_dir)}
     check(sorted(files) == [it["image"] for it in items],
@@ -1878,8 +1915,8 @@ def cli_lits_phase(tmp, counters, k1_per_request, held):
     stats.update(test_volumes_ms=vols, test_written_bytes=dir_bytes(out_dir),
                  box_ious=[float(v) for v in box_ious])
 
-    params, _ = checkpoint.load_any(wpath, cfg,
-                                    weights.init_params(cfg, seed=0))
+    params, _, _ = checkpoint.load_any(wpath, cfg,
+                                       weights.init_params(cfg, seed=0))
     det = Detector(cfg, params)
     files = {name.split("_", 1)[1]: name for name in os.listdir(out_dir)}
     check(sorted(files) == [f"liver_{i}.nii.gz" for i in range(n)],
@@ -1968,6 +2005,559 @@ def cli_lits_phase(tmp, counters, k1_per_request, held):
     return by_path, stats
 
 
+# ---- training loops ---------------------------------------------------------
+#
+# train_loop_heart / train_loop_lits run the port's train command and
+# train_model; `schedule` reruns the JAX package's synthetic heart
+# schedule.  The data: benchmarks/train_synth.py's synthetic heart train
+# set (8 volumes, seed 1000, 144x144x96, 7 classes), its validation
+# volumes (seed 2000; 13 for the CLI, whose manifest validates its first
+# 13), and seeded 400x400x280 LiTS volumes as the .npy cache.
+LOOP_HEART_TRAIN = dict(n=8, seed=1000, host_shape=(144, 144, 96), n_fg=7)
+LOOP_HEART_VAL = dict(seed=2000, host_shape=(144, 144, 96), n_fg=7)
+LOOP_LITS = dict(n_train=4, train_seed=120, val_id=111, val_seed=190)
+# train_model's short schedule: the resume check and the mold cache
+SHORT_LOOP = dict(steps_per_epoch=5, val_every_epochs=1, validation_steps=2)
+# the resumed run is held to this many times the spread of two identical
+# runs (cuDNN's backward sums in an order that varies between runs)
+RESUME_SPREAD_FACTOR = 4.0
+# the JAX package's synthetic heart schedule (benchmarks/train_synth.py
+# defaults, --weights none) and its recorded loss curve
+SCHEDULE = dict(epochs=60, steps_per_epoch=15, seed=0)
+JAX_SCHEDULE_CURVE = os.path.join("benchmarks", "train_synth_extend.json")
+
+
+def _window_stats(prof, wall_ms):
+    """Busy and idle share of a profiled window of training steps, and
+    its host-to-device copies: their device ms and the part of it that
+    overlaps a kernel (union of the kernels' intervals)."""
+    import torch
+
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in evs)
+    kernels = [(a, b) for a, b, n in spans if "memcpy" not in n.lower()
+               and "memset" not in n.lower()]
+    h2d = [(a, b) for a, b, n in spans if "htod" in n.lower()]
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    busy_iv = union([(a, b) for a, b, _ in spans])
+    kern_iv = union(kernels)
+    overlap = 0.0
+    for a, b in h2d:
+        for c, d in kern_iv:
+            overlap += max(0.0, min(b, d) - max(a, c))
+    busy = sum(b - a for a, b in busy_iv) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "h2d_copies": len(h2d),
+            "h2d_ms": sum(b - a for a, b in h2d) / 1e3,
+            "h2d_overlapped_ms": overlap / 1e3, "device_events": len(evs)}
+
+
+class LoopProbe:
+    """What a training loop run does on the card: CUDA events around each
+    step call (``train/loop.py``'s ``make_train_step`` wrapped), the NMS
+    inputs and K1's result of the first and the last step, torch.profiler
+    windows over the step calls ``windows`` ([start, end) indices), calls
+    of K1's plain version, and every kernel's launches and shapes (set to
+    0 on entry, read on exit), the peak memory and the clocks."""
+
+    def __init__(self, label, k1, counters, windows=()):
+        self.label, self.k1, self.counters = label, k1, counters
+        self.windows = list(windows)
+        self.events, self.first, self.last = [], None, None
+        self.plain, self.window_stats = 0, []
+        self._prof = None
+        # step calls a profiler window's end (its host-side stop) preceded
+        self.closed_before = set()
+
+    def _nms(self, boxes, valid, thr, k):
+        idx, keep = self.k1.sorted_nms(boxes, valid, thr, k)
+        rec = (boxes.clone(), valid.clone(), thr, k, idx.clone(),
+               keep.clone())
+        if self.first is None:
+            self.first = rec
+        self.last = rec
+        return idx, keep
+
+    def _edge(self, i):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        for a, b in self.windows:
+            if i == b and self._prof is not None:
+                self._close()
+                self.closed_before.add(i)
+            if i == a:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.start()
+                self._t0 = time.perf_counter()
+
+    def _close(self):
+        import torch
+
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self._t0) * 1e3
+        self._prof.stop()
+        self.window_stats.append(_window_stats(self._prof, wall))
+        self._prof = None
+
+    def __enter__(self):
+        import torch
+
+        from cfun_tpu_torch.train import loop
+
+        self._loop, self._orig_make = loop, loop.make_train_step
+        self._orig_plain = self.k1.sorted_nms_reference
+
+        def plain(*args):
+            self.plain += 1
+            return self._orig_plain(*args)
+
+        def make(cfg, anchors):
+            init, step = self._orig_make(cfg, anchors)
+
+            def wrapped(state, batch, draws=None, generator=None, **kw):
+                self._edge(len(self.events))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch, draws, generator, nms=self._nms)
+                end.record()
+                self.events.append((start, end))
+                return out
+
+            return init, wrapped
+
+        loop.make_train_step = make
+        self.k1.sorted_nms_reference = plain
+        self.clocks = [print_clocks(f"{self.label} before")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(self.counters)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        try:
+            if self._prof is not None:
+                self._close()
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.launches = {n: m.launches for n, m in self.counters.items()}
+            self.shapes = {n: dict(m.launch_shapes)
+                           for n, m in self.counters.items()}
+            self.peak = torch.cuda.max_memory_allocated()
+        finally:
+            self._loop.make_train_step = self._orig_make
+            self.k1.sorted_nms_reference = self._orig_plain
+        if exc[0] is None:
+            self.clocks.append(print_clocks(f"{self.label} after"))
+        return False
+
+    def step_seconds(self):
+        """Each step's seconds on the stream, start to next start (the
+        loop's pace, waits on the host included); start to end for the
+        last step and for one a profiler window's stop follows (the stop
+        processes the window's events on the host for seconds)."""
+        ev = self.events
+        return [ev[i][0].elapsed_time(ev[i][1]) / 1e3
+                if i + 1 == len(ev) or i + 1 in self.closed_before
+                else ev[i][0].elapsed_time(ev[i + 1][0]) / 1e3
+                for i in range(len(ev))]
+
+    def check_k1(self, n_steps, n_val):
+        """K1 once a step and once a validation forward at the train
+        shape, its plain version and K2 never, K1 equal to its plain
+        version on the first and last step's NMS inputs.  Returns the
+        record of K1 timed at the first step's inputs."""
+        import torch
+
+        want = n_steps + n_val
+        check(self.launches["sorted_nms"] == want and
+              self.shapes["sorted_nms"] == {K1_TRAIN_SHAPE: want},
+              f"{self.label}: K1 {want} times ({n_steps} steps + {n_val} "
+              f"validation forwards) at {K1_TRAIN_SHAPE}: {self.launches} "
+              f"{self.shapes}")
+        check(self.plain == 0, f"{self.label}: the plain NMS ran")
+        check(self.launches["fused_conv3d"] == 0, f"{self.label}: K2 ran")
+        check(len(self.events) == n_steps,
+              f"{self.label}: {len(self.events)} step calls, not {n_steps}")
+        for tag, (boxes, valid, thr, k, idx, keep) in (("first", self.first),
+                                                       ("last", self.last)):
+            ridx, rkeep = self._orig_plain(boxes, valid, thr, k)
+            check(torch.equal(idx, ridx) and torch.equal(keep, rkeep),
+                  f"{self.label}: K1 against its plain version on the "
+                  f"{tag} step's NMS inputs")
+        boxes, valid, thr, k = self.first[:4]
+        rec = k1_time(self.k1, boxes, valid, thr, k, f"{self.label} step")
+        rec["device_ms"], rec["kernel_ms"] = kernel_device_ms(
+            lambda: self.k1.sorted_nms(boxes, valid, thr, k), K1_KERNELS)
+        rec["site"] = self.label
+        return rec
+
+
+def _metric_records(log_dir):
+    import glob
+
+    recs = []
+    for f in sorted(glob.glob(os.path.join(log_dir, "**",
+                                           "train_metrics.jsonl"),
+                              recursive=True)):
+        with open(f) as fh:
+            recs.extend(json.loads(line) for line in fh)
+    return ({r["epoch"]: r for r in recs if "loss" in r},
+            {r["epoch"]: r for r in recs if "val_loss" in r})
+
+
+def loop_report(probe, log_dir, n_steps):
+    """The numbers of one loop run: s/step (median after the first, the
+    first), the feeder's item ms by part and the loop's wait on it a step,
+    H2D bytes a step, the profiled window's busy / idle and copies, the
+    peak memory, the clocks."""
+    import numpy as np
+
+    epochs, vals = _metric_records(log_dir)
+    secs = probe.step_seconds()
+    med = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
+    steps = sum(r["steps"] for r in epochs.values())
+    check(steps == n_steps, f"{probe.label}: {steps} steps logged")
+    for e, r in epochs.items():
+        check(np.isfinite(r["loss"]), f"{probe.label}: epoch {e} loss")
+    items = [r["feeder_item_ms"] for r in epochs.values()
+             if r["feeder_item_ms"]]
+    item_ms = {k: float(np.mean([it[k] for it in items]))
+               for k in (items[0] if items else {})}
+    wait = sum(r["feeder_wait_s"] for r in epochs.values()) / steps
+    h2d = sum(r["h2d_bytes"] for r in epochs.values()) / steps
+    rec = {"steps": steps, "s_per_step": secs,
+           "median_s_per_step_after_first": med, "first_step_s": secs[0],
+           "wall_s": probe.wall, "feeder_item_ms": item_ms,
+           "feeder_wait_s_per_step": wait, "h2d_bytes_per_step": h2d,
+           "windows": probe.window_stats, "peak_bytes": probe.peak,
+           "clocks": probe.clocks, "launches": probe.launches,
+           "epochs": {str(e): {k: v for k, v in r.items()
+                               if k != "feeder_item_ms"}
+                      for e, r in epochs.items()},
+           "val_loss": {str(e): r["val_loss"] for e, r in vals.items()}}
+    win = "; ".join(
+        f"window {i}: busy {w['busy_ms']:.3f} of {w['wall_ms']:.3f} ms "
+        f"(idle {w['idle_share']:.3f}), {w['h2d_copies']} H2D copies "
+        f"{w['h2d_ms']:.3f} ms of which {w['h2d_overlapped_ms']:.3f} ms "
+        f"under a kernel" for i, w in enumerate(probe.window_stats))
+    print(f"{probe.label}: {steps} steps in {probe.wall:.3f} s, median "
+          f"{med:.4f} s/step after the first, first {secs[0]:.4f} s; feeder "
+          f"item ms {item_ms}; the loop's wait on the feeder "
+          f"{wait * 1e3:.2f} ms/step; H2D {h2d:.0f} B/step; {win}; "
+          f"max_memory_allocated {probe.peak} B; epoch losses "
+          f"{[round(r['loss'], 6) for r in epochs.values()]}", flush=True)
+    return rec
+
+
+def checkpoint_times(cfg, ckpt, tmp, dev):
+    """save and save_async (its caller's part, then flush) of the trained
+    parameters and optimizer state, ms and bytes."""
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train.step import make_train_step
+    from cfun_tpu_torch.utils import checkpoint
+
+    init, _ = make_train_step(cfg, config_anchors(cfg))
+    state = init(weights.to_device(weights.init_params(cfg, 0), dev))
+    checkpoint.load(ckpt, state.params, state.opt_state)
+    out = {}
+    path = os.path.join(tmp, "timing")
+    t0 = time.perf_counter()
+    checkpoint.save(path, state.params, 1, 1, state.opt_state)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    checkpoint.save_async(path, state.params, 1, 1, state.opt_state)
+    out["save_async_caller_ms"] = (time.perf_counter() - t0) * 1e3
+    checkpoint.flush()
+    out["save_async_total_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bytes"] = os.path.getsize(path + ".npz")
+    os.remove(path + ".npz")
+    print(f"checkpoint of {cfg.name} '{cfg.stage}': save "
+          f"{out['save_ms']:.1f} ms, save_async {out['save_async_caller_ms']:.1f}"
+          f" ms on the caller ({out['save_async_total_ms']:.1f} ms to "
+          f"flush), {out['bytes']} B", flush=True)
+    return out
+
+
+def write_heart_manifest(data, val, train):
+    """``val`` then ``train`` (SyntheticDataset) as float32 .nii volumes
+    and labels with a dataset.json whose first len(val) entries the heart
+    CLI validates on."""
+    import numpy as np
+
+    from cfun_tpu_torch.data import nifti
+
+    os.makedirs(data, exist_ok=True)
+    items = []
+    for tag, ds in (("val", val), ("train", train)):
+        for i in range(ds.num_images):
+            item = {"image": f"{tag}_img_{i:02d}.nii",
+                    "label": f"{tag}_lbl_{i:02d}.nii"}
+            nifti.save(os.path.join(data, item["image"]),
+                       ds.load_image(i)[..., 0].astype(np.float32))
+            nifti.save(os.path.join(data, item["label"]),
+                       ds.load_mask(i).astype(np.int16))
+            items.append(item)
+    with open(os.path.join(data, "dataset.json"), "w") as f:
+        json.dump({"train_and_test": items}, f)
+
+
+def _ckpt_meta(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
+
+
+def train_loop_heart(tmp, counters, k1, dev):
+    """The heart CLI's train (45 steps of heart_config('beginning') from
+    weights/heart_synth.npz, its epoch 60 + 1, no validation at epoch 61);
+    train_model's short schedule, 3 epochs against 2 + resume 1, held to
+    the spread of two identical runs; and --aug-device --device-cache for
+    2 epochs, with no image upload in the second.  Returns ({path:
+    launches}, {path: record})."""
+    import numpy as np
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch.cli import heart_main
+    from cfun_tpu_torch.data.datasets import SyntheticDataset
+    from cfun_tpu_torch.train.loop import train_model
+
+    wpath = os.path.join(ROOT, "weights", "heart_synth.npz")
+    start_epoch = _ckpt_meta(wpath)["epoch"]
+    cfg = port_config.heart_config("beginning")
+    train = SyntheticDataset(cfg, **LOOP_HEART_TRAIN)
+    data = os.path.join(tmp, "heart_data")
+    t0 = time.perf_counter()
+    write_heart_manifest(data, SyntheticDataset(cfg, n=13, **LOOP_HEART_VAL),
+                         train)
+    print(f"train_loop_heart: wrote 13 validation and "
+          f"{train.num_images} train volumes in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches, recs = {}, {}
+
+    # 1. the CLI
+    logs = os.path.join(tmp, "cli_logs")
+    with LoopProbe("train_loop_heart cli", k1, counters,
+                   windows=[(10, 20)]) as probe:
+        ckpt = heart_main.main(["train", "--weights", wpath, "--stage",
+                                "beginning", "--data", data, "--logs", logs,
+                                "--epochs", str(start_epoch + 1),
+                                "--workers", "8"])
+    n = cfg.steps_per_epoch
+    rec = loop_report(probe, logs, n)
+    rec["k1"] = probe.check_k1(n, 0)
+    meta = _ckpt_meta(ckpt)
+    check((meta["epoch"], meta["step"]) == (start_epoch + 1, n),
+          f"train_loop_heart cli: the checkpoint's epoch and step {meta}")
+    rec["checkpoint"] = checkpoint_times(cfg, ckpt, tmp, dev)
+    launches["train_loop_heart_cli"], recs["heart cli"] = probe.launches, rec
+
+    # 2. the short schedule: the spread of identical runs, then the resume
+    scfg = cfg.replace(**SHORT_LOOP)
+    val = SyntheticDataset(cfg, n=2, **LOOP_HEART_VAL)
+    runs = {}
+    for name, epochs, weights in (("a", 3, wpath), ("a2", 3, wpath),
+                                  ("b", 2, wpath), ("c", 3, "b")):
+        log = os.path.join(tmp, f"short_{name}")
+        w = runs["b"][0] if weights == "b" else weights
+        n_ep = 1 if name == "c" else epochs
+        with LoopProbe(f"train_loop_heart short {name}", k1,
+                       counters) as probe:
+            path = train_model(scfg, train, val, log_dir=log, weights=w,
+                               epochs=start_epoch + epochs, num_workers=8)
+        probe.check_k1(n_ep * scfg.steps_per_epoch,
+                       n_ep * scfg.validation_steps)
+        launches[f"train_loop_heart_short_{name}"] = probe.launches
+        runs[name] = (path, _metric_records(log), probe)
+    last = start_epoch + 3
+
+    def gaps(x, y):
+        ex, vx = runs[x][1]
+        ey, vy = runs[y][1]
+        out = {"loss": abs(ex[last]["loss"] - ey[last]["loss"]),
+               "val_loss": abs(vx[last]["val_loss"] - vy[last]["val_loss"])}
+        with np.load(runs[x][0]) as a, np.load(runs[y][0]) as b:
+            out["params"] = max(float(np.abs(a[k] - b[k]).max())
+                                for k in a.files if k.startswith("params/"))
+        return out
+
+    spread, resume = gaps("a", "a2"), gaps("a", "c")
+    for k, s in spread.items():
+        check(resume[k] <= RESUME_SPREAD_FACTOR * s,
+              f"train_loop_heart short: the resumed run's {k} gap "
+              f"{resume[k]:.3g} within {RESUME_SPREAD_FACTOR:g} x the "
+              f"spread of identical runs {s:.3g}")
+    ea = runs["a"][1][0]
+    print(f"train_loop_heart short: epochs {sorted(ea)} losses "
+          f"{[ea[e]['loss'] for e in sorted(ea)]}; identical runs part by "
+          f"{spread}, the resumed run (2 + 1 epochs) from the straight one "
+          f"by {resume}", flush=True)
+    recs["heart short"] = {"spread": spread, "resume_gap": resume,
+                           "losses": {str(e): r["loss"]
+                                      for e, r in ea.items()},
+                           "median_s_per_step_after_first": float(np.median(
+                               runs["a"][2].step_seconds()[1:]))}
+
+    # 3. rotation and targets on the device, the molds kept there
+    acfg = cfg.replace(augment_on_device=True, device_mold_cache=True,
+                       steps_per_epoch=train.num_images, val_every_epochs=1,
+                       validation_steps=2)
+    log = os.path.join(tmp, "aug_logs")
+    n = acfg.steps_per_epoch
+    with LoopProbe("train_loop_heart aug", k1, counters,
+                   windows=[(1, n), (n + 1, 2 * n + 1)]) as probe:
+        train_model(acfg, train, val, log_dir=log, weights=wpath,
+                    epochs=start_epoch + 2, num_workers=8)
+    rec = loop_report(probe, log, 2 * n)
+    rec["k1"] = probe.check_k1(2 * n, 2 * acfg.validation_steps)
+    ep = _metric_records(log)[0]
+    first, second = (ep[start_epoch + 1]["h2d_bytes"],
+                     ep[start_epoch + 2]["h2d_bytes"])
+    w1, w2 = probe.window_stats
+    check(first > 0 and second == 0,
+          f"train_loop_heart aug: H2D bytes by epoch {first}, {second}")
+    check(w2["h2d_ms"] <= 0.01 * w1["h2d_ms"],
+          f"train_loop_heart aug: the profiler's H2D copies in epoch 2 "
+          f"({w2['h2d_copies']}, {w2['h2d_ms']:.4f} ms) against epoch 1's "
+          f"({w1['h2d_copies']}, {w1['h2d_ms']:.4f} ms)")
+    launches["train_loop_heart_aug"], recs["heart aug"] = probe.launches, rec
+    return launches, recs
+
+
+def train_loop_lits(tmp, counters, k1, dev):
+    """The LiTS CLI's train (100 steps of lits_config('beginning') from
+    weights/lits_synth.npz, its epoch 6 + 1) on the .npy cache of seeded
+    400x400x280 volumes (train ids 0.., validation id 111).  Returns
+    (launches, record)."""
+    import numpy as np
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch.cli import lits_main
+
+    wpath = os.path.join(ROOT, "weights", "lits_synth.npz")
+    start_epoch = _ckpt_meta(wpath)["epoch"]
+    cache = os.path.join(tmp, "lits_cache")
+    for sub in ("image_np", "label_np"):
+        os.makedirs(os.path.join(cache, sub))
+    t0 = time.perf_counter()
+    vols = synthetic_lits(LOOP_LITS["n_train"], LOOP_LITS["train_seed"])
+    vols += synthetic_lits(1, LOOP_LITS["val_seed"])
+    ids = list(range(LOOP_LITS["n_train"])) + [LOOP_LITS["val_id"]]
+    for i, (vol, lab) in zip(ids, vols):
+        np.save(os.path.join(cache, "image_np", f"liver_{i}.npy"), vol)
+        np.save(os.path.join(cache, "label_np", f"liver_label_{i}.npy"), lab)
+    del vols
+    print(f"train_loop_lits: wrote {len(ids)} 400x400x280 volumes (ids "
+          f"{ids}) in {time.perf_counter() - t0:.3f} s", flush=True)
+    cfg = port_config.lits_config("beginning")
+    logs = os.path.join(tmp, "logs")
+    with LoopProbe("train_loop_lits cli", k1, counters,
+                   windows=[(40, 60)]) as probe:
+        ckpt = lits_main.main(["train", "--weights", wpath, "--stage",
+                               "beginning", "--data", cache, "--logs", logs,
+                               "--epochs", str(start_epoch + 1),
+                               "--workers", "8"])
+    n = cfg.steps_per_epoch
+    rec = loop_report(probe, logs, n)
+    rec["k1"] = probe.check_k1(n, 0)
+    meta = _ckpt_meta(ckpt)
+    check((meta["epoch"], meta["step"]) == (start_epoch + 1, n),
+          f"train_loop_lits: the checkpoint's epoch and step {meta}")
+    rec["checkpoint"] = checkpoint_times(cfg, ckpt, tmp, dev)
+    return probe.launches, rec
+
+
+def schedule_phase(tmp, counters, k1, dev, start="none"):
+    """The JAX package's synthetic heart schedule from seeded random
+    weights (``--weights none``), or from the checkpoint ``start`` (an
+    epoch-0 .npz, e.g. the JAX package's own initial weights):
+    benchmarks/train_synth.py's data, 60 epochs of 15 steps, seed 0, the
+    bf16 wire; then the held-out evaluation of cli_heart (12 volumes, seed
+    3000) on the weights it wrote: Dice and box IoU beside the JAX
+    package's."""
+    import numpy as np
+
+    from cfun_tpu_torch import config as port_config
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.cli.lits_main import _box_iou, _gt_extended_box_yxz
+    from cfun_tpu_torch.data.datasets import SyntheticDataset
+    from cfun_tpu_torch.inference import Detector
+    from cfun_tpu_torch.train.loop import train_model
+    from cfun_tpu_torch.utils import checkpoint
+    from cfun_tpu_torch.utils.metrics import per_class_dice
+
+    cfg = port_config.heart_config(
+        "beginning", steps_per_epoch=SCHEDULE["steps_per_epoch"])
+    train = SyntheticDataset(cfg, **LOOP_HEART_TRAIN)
+    val = SyntheticDataset(cfg, n=2, **LOOP_HEART_VAL)
+    log = os.path.join(tmp, "schedule")
+    n_val = SCHEDULE["epochs"] // cfg.val_every_epochs
+    with LoopProbe("schedule", k1, counters) as probe:
+        ckpt = train_model(cfg, train, val, log_dir=log, weights=start,
+                           epochs=SCHEDULE["epochs"], seed=SCHEDULE["seed"],
+                           num_workers=8)
+    n = SCHEDULE["epochs"] * cfg.steps_per_epoch
+    rec = loop_report(probe, log, n)
+    probe.check_k1(n, n_val * min(cfg.validation_steps, val.num_images))
+    epochs, vals = _metric_records(log)
+    curve = [round(epochs[e]["loss"], 4) for e in sorted(epochs)]
+    with open(os.path.join(ROOT, JAX_SCHEDULE_CURVE)) as f:
+        jax_curve = next(r for r in json.load(f)
+                         if r.get("stage", "beginning") == "beginning"
+                         and r["epochs"] == SCHEDULE["epochs"]
+                         and r["wire"] == "bf16")["losses"]
+
+    icfg = port_config.heart_inference_config("beginning")
+    params, _, _ = checkpoint.load_any(ckpt, icfg,
+                                       weights.init_params(icfg, 0))
+    det = Detector(icfg, params)
+    held = SyntheticDataset(icfg, **HEART_EVAL)
+    dices, bious = [], []
+    for i in range(held.num_images):
+        label = np.asarray(held.load_mask(i), np.int32)
+        res = det.detect(held.load_image(i)[..., 0])
+        rois = np.clip(res["rois"], 0, None).astype(np.int64)
+        if len(rois):
+            bious.append(_box_iou(_gt_extended_box_yxz(label).astype(
+                np.float64), rois[0].astype(np.float64)))
+        dices.append(per_class_dice(label, res["mask"], icfg.num_classes))
+    det.close()
+    dice = float(np.mean(dices))
+    biou = float(np.mean(bious)) if bious else float("nan")
+    print(f"schedule: loss by epoch {curve}; validation loss "
+          f"{[round(vals[e]['val_loss'], 4) for e in sorted(vals)]}; the JAX "
+          f"package's recorded curve ({JAX_SCHEDULE_CURVE}, its last "
+          f"{len(jax_curve)} epochs) {jax_curve}; held-out Dice {dice:.4f} "
+          f"(per class {np.round(np.mean(dices, axis=0), 4).tolist()}), box "
+          f"IoU {biou:.4f} ({len(bious)} boxes) beside the JAX package's "
+          f"{HEART_JAX_EVAL}", flush=True)
+    rec.update(start=start, loss_curve=curve, jax_loss_curve=jax_curve,
+               val_loss={str(e): vals[e]["val_loss"] for e in sorted(vals)},
+               dice_mean=dice, box_iou_mean=biou,
+               dice_per_class=np.mean(dices, axis=0).tolist(),
+               jax_recorded=HEART_JAX_EVAL)
+    return probe.launches, rec
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1977,11 +2567,14 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr, flush=True)
         return 2
     args = sys.argv[1:]
-    if len(args) > 1 or (args and args[0] not in CHECKPOINTS):
-        print(f"usage: chip_smoke.py [{' | '.join(CHECKPOINTS)}]",
-              file=sys.stderr, flush=True)
+    schedule = bool(args) and args[0] == "schedule"
+    if (len(args) > (2 if schedule else 1)
+            or (args and not schedule and args[0] not in CHECKPOINTS)):
+        print(f"usage: chip_smoke.py [{' | '.join(CHECKPOINTS)} | "
+              f"schedule [START.npz]]", file=sys.stderr, flush=True)
         return 2
-    families = tuple(args) if args else tuple(CHECKPOINTS)
+    families = () if schedule else tuple(args) if args else \
+        tuple(CHECKPOINTS)
     heart, lits = "heart" in families, "lits" in families
     missing = [p for f in families for p in CHECKPOINTS[f]
                if not os.path.isfile(os.path.join(ROOT, p))]
@@ -2072,6 +2665,22 @@ def main() -> int:
                       f"{rec['kernel_ms']:.4f} ms (profiler, kernel alone)",
                       flush=True)
                 k1_lits_cases.append(rec)
+
+    if schedule:
+        with phase("schedule"):
+            tmp = tempfile.mkdtemp(prefix="cfun_schedule_")
+            try:
+                _, rec = schedule_phase(tmp, counters, k1, dev,
+                                        *args[1:])
+            finally:
+                shutil.rmtree(tmp)
+        print(json.dumps({"schedule": rec}), flush=True)
+        print(card, flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     with phase("k2"):
         for i, (b, ci, co, d, h, w, pre) in enumerate(K2_EDGE):
@@ -2238,6 +2847,17 @@ def main() -> int:
                 del tparams
                 torch.cuda.empty_cache()
 
+        with phase("train_loop_heart"):
+            tmp = tempfile.mkdtemp(prefix="cfun_loop_heart_")
+            try:
+                loop_launches, loop_recs = train_loop_heart(tmp, counters,
+                                                            k1, dev)
+            finally:
+                shutil.rmtree(tmp)
+            launches_by_path.update(loop_launches)
+            training.update({f"loop {k}": v for k, v in loop_recs.items()})
+            torch.cuda.empty_cache()
+
     if lits:
         with phase("serve_lits"):
             lcfg = port_config.lits_inference_config("finetune")
@@ -2380,6 +3000,16 @@ def main() -> int:
                 falls_by_last=False)
             launches_by_path["train_lits_beginning"] = rec["launches"]
             del tparams
+            torch.cuda.empty_cache()
+
+        with phase("train_loop_lits"):
+            tmp = tempfile.mkdtemp(prefix="cfun_loop_lits_")
+            try:
+                launches_by_path["train_loop_lits_cli"], \
+                    training["loop lits cli"] = train_loop_lits(
+                        tmp, counters, k1, dev)
+            finally:
+                shutil.rmtree(tmp)
             torch.cuda.empty_cache()
 
     with phase("stream"):

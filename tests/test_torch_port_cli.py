@@ -9,9 +9,12 @@ JAX package's native library patched away, the port given
 ``approx_topk=False, nms_backend="scan"``.  Criteria: per-class IoU and
 Dice (and LiTS' box IoUs) to rtol 1e-6, the same file names, and the
 exported label volumes agreeing on >= 99.9% of voxels.  Then ``main``:
-``--exact`` reaches the config, ``train`` stops with an error, and
-without ``--device`` on a machine with no card the command stops before
-it loads anything.  And ``--trace``'s profiler context.
+``--exact`` reaches the config; ``train --device cpu`` of both CLIs on
+fabricated data (the config shrunk to the tiny one) writes its checkpoint
+and metrics, and stops on ``--mesh`` over several devices and on
+``--device-cache`` without ``--aug-device``; without ``--device`` on a
+machine with no card every command stops before it loads anything.  And
+``--trace``'s profiler context.
 """
 
 import glob
@@ -268,18 +271,98 @@ def test_exact_flag_reaches_config(monkeypatch, heart_root, family):
         assert cfg.device_normalize is True
 
 
+def _train_cfg(mod, stage, family):
+    """The family's train config shrunk as the CLI A/Bs shrink theirs:
+    the tiny config (LiTS: tests/test_torch_port_feeder.py's tiny LiTS),
+    two steps an epoch, one validation forward every epoch."""
+    loop = dict(steps_per_epoch=2, validation_steps=1, val_every_epochs=1)
+    if family == "heart":
+        return mod.tiny_config(stage, **loop)
+    return mod.tiny_config(stage, **loop).replace(
+        name="lits", num_classes=3, backbone="P3D35",
+        intensity_norm="hu_window", pad_shape=(40, 72, 72),
+        mask_class_weights=(1.0, 1.0, 100.0), unet_dropout_rate=0.0,
+        mask_shape_override=(16, 16, 16), mask_pool_size=(16, 16, 16),
+        wire_int8_scale=127.0)
+
+
+@pytest.fixture(scope="module")
+def train_roots(tmp_path_factory):
+    """Fabricated training data: a heart manifest of 15 volumes (the first
+    13 validate), and a LiTS cache with train volume 0 and validation
+    volume 111."""
+    heart = str(tmp_path_factory.mktemp("heart_train"))
+    _write_synth_dataset(heart, n=15)
+    lits = str(tmp_path_factory.mktemp("lits_train"))
+    for sub in ("image_np", "label_np"):
+        os.makedirs(os.path.join(lits, sub))
+    for i in (0, 111):
+        image, label = _raw_volume(seed=i)
+        np.save(os.path.join(lits, "image_np", f"liver_{i}.npy"),
+                image.astype(np.float32))
+        np.save(os.path.join(lits, "label_np", f"liver_label_{i}.npy"),
+                label.astype(np.int16))
+    return {"heart": heart, "lits": lits}
+
+
+def _train_argv(root, logs, *extra):
+    return ["train", "--weights", "none", "--stage", "beginning", "--data",
+            root, "--logs", logs, "--epochs", "1", "--workers", "2",
+            "--device", "cpu", *extra]
+
+
 @pytest.mark.parametrize("family", ["heart", "lits"])
-def test_train_is_refused(capsys, heart_root, family):
+def test_train_writes_checkpoint_and_metrics(monkeypatch, tmp_path,
+                                             train_roots, family):
+    """``train --device cpu`` runs the loop on the fabricated data (the
+    family's config shrunk) and writes ``model.npz`` (parameters, the
+    optimizer's leaves, epoch 1 after 2 steps) and ``train_metrics.jsonl``
+    (the epoch's loss and its validation loss)."""
+    import json
+
+    mod = pheart if family == "heart" else plits
+    name = "heart_config" if family == "heart" else "lits_config"
+    monkeypatch.setattr(pconfig, name, lambda stage, **kw: _train_cfg(
+        pconfig, stage, family))
+    logs = str(tmp_path / "logs")
+    ckpt = mod.main(_train_argv(train_roots[family], logs))
+    assert ckpt.endswith("model.npz") and os.path.isfile(ckpt)
+    with np.load(ckpt) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        assert any(k.startswith("opt/") for k in data.files)
+        assert any(k.startswith("params/") for k in data.files)
+    assert (meta["epoch"], meta["step"], meta["name"]) == (1, 2, family)
+    files = glob.glob(os.path.join(logs, "**", "train_metrics.jsonl"),
+                      recursive=True)
+    assert len(files) == 1
+    with open(files[0]) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in records] == [1, 1]
+    assert np.isfinite(records[0]["loss"]) and records[0]["steps"] == 2
+    assert np.isfinite(records[1]["val_loss"])
+
+
+@pytest.mark.parametrize("family", ["heart", "lits"])
+def test_train_multi_device_mesh_stops(capsys, tmp_path, train_roots,
+                                       family):
     mod = pheart if family == "heart" else plits
     with pytest.raises(SystemExit) as exc:
-        mod.main(["train", "--weights", "none", "--stage", "beginning",
-                  "--data", heart_root, "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+        mod.main(_train_argv(train_roots[family], str(tmp_path), "--mesh",
+                             "2"))
+    assert exc.value.code == 2
+    assert "multi-device training is not yet ported" in \
+        capsys.readouterr().err
+
+
+def test_train_device_cache_needs_aug_device(tmp_path, train_roots):
+    with pytest.raises(SystemExit, match="--device-cache requires "
+                                         "--aug-device"):
+        pheart.main(_train_argv(train_roots["heart"], str(tmp_path),
+                                "--device-cache"))
 
 
 @pytest.mark.parametrize("family", ["heart", "lits"])
-@pytest.mark.parametrize("command", ["test", "submit"])
+@pytest.mark.parametrize("command", ["train", "test", "submit"])
 def test_no_card_and_no_device_flag_stops(monkeypatch, capsys, heart_root,
                                           family, command):
     """Without ``--device`` the commands run on CUDA; with no card they
@@ -362,6 +445,7 @@ def test_import_scan_covers_the_slice():
     slice_modules = {f"cfun_tpu_torch.{m}" for m in (
         "cli", "cli.heart_main", "cli.lits_main", "utils",
         "utils.checkpoint", "utils.metrics", "utils.profiling",
-        "utils.torch_convert", "data.nifti", "data.datasets",
-        "data.preprocess_lits")}
+        "utils.torch_convert", "utils.logging", "data.nifti",
+        "data.datasets", "data.preprocess_lits", "data.feeder",
+        "ops.augment", "train.loop")}
     assert slice_modules <= found, sorted(slice_modules - found)

@@ -307,9 +307,9 @@ def test_load_any_native_npz_matches_jax(tmp_path, tiny_trees, store):
           if store == "f16_compressed" else {})
     jcheckpoint.save(path, jp, epoch=3, step=7, meta={"tag": "t"}, **kw)
     want, _, jmeta = jcheckpoint.load_any(path, jcfg, jp, strict=True)
-    got, meta = pcheckpoint.load_any(path[:-4], pcfg,
-                                     weights.init_params(pcfg, seed=1),
-                                     strict=True)
+    got, opt, meta = pcheckpoint.load_any(
+        path[:-4], pcfg, weights.init_params(pcfg, seed=1), strict=True)
+    assert opt is None
     assert meta == jmeta == {"epoch": 3, "step": 7, "tag": "t"}
     _trees_equal(got, weights.params_from_numpy(want, pcfg))
 
@@ -339,7 +339,7 @@ def test_load_key_filtered_stage_transfer_matches_jax(tmp_path):
     path = str(tmp_path / "beginning.npz")
     jcheckpoint.save(path, stored, meta={"stage": "beginning"})
     want, _, _ = jcheckpoint.load_any(path, jcfg, template)
-    got, meta = pcheckpoint.load_any(
+    got, _, meta = pcheckpoint.load_any(
         path, pcfg, weights.params_from_numpy(template, pcfg))
     assert meta["stage"] == "beginning"
     _trees_equal(got, weights.params_from_numpy(want, pcfg))
@@ -366,7 +366,7 @@ def test_load_strict_raises(tmp_path, tiny_trees, fault):
         pcheckpoint.load(path, template, strict=True)
     with pytest.raises(ValueError if fault == "shape" else KeyError):
         jcheckpoint.load(path, jp, strict=True)
-    got, _ = pcheckpoint.load(path, template, strict=False)
+    got, _, _ = pcheckpoint.load(path, template, strict=False)
     leaf = ("fpn/p3_conv2/b" if fault == "shape"
             else "classifier/bn1/var")
     assert torch.equal(weights._leaves(got)[leaf],
@@ -440,8 +440,9 @@ def test_load_any_reference_torch_checkpoint_matches_jax(tmp_path, which):
     torch.save(_reference_state_dict(tree, jcfg), path)
     assert not pcheckpoint._is_native_npz(path)
     want, _, jmeta = jcheckpoint.load_any(path, jcfg, None)
-    got, meta = pcheckpoint.load_any(path, pcfg,
-                                     weights.init_params(pcfg, seed=0))
+    got, opt, meta = pcheckpoint.load_any(path, pcfg,
+                                          weights.init_params(pcfg, seed=0))
+    assert opt is None
     assert meta == jmeta == {"source": "torch", "path": path}
     _trees_equal(got, weights.params_from_numpy(want, pcfg))
     _trees_equal(got, weights.params_from_numpy(tree, pcfg))

@@ -40,7 +40,9 @@ names = {m.name for m in pkgutil.walk_packages(cfun_tpu_torch.__path__,
                                                "cfun_tpu_torch.")}
 new = ["cfun_tpu_torch.train", "cfun_tpu_torch.train.losses",
        "cfun_tpu_torch.train.targets", "cfun_tpu_torch.train.step",
-       "cfun_tpu_torch.data.feeder"]
+       "cfun_tpu_torch.train.loop", "cfun_tpu_torch.data.feeder",
+       "cfun_tpu_torch.ops.augment", "cfun_tpu_torch.utils.logging",
+       "cfun_tpu_torch.utils.checkpoint"]
 for name in new:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -51,10 +53,11 @@ print(sorted(set(new) - names), bad)
 
 
 def test_train_modules_import_alone():
-    """The training modules (and the feeder's NumPy part) are found by the
-    walk above and import neither JAX, optax nor the JAX package: the
-    port keeps its own ``build_rpn_targets`` and
-    ``np_mask_to_extended_bbox``."""
+    """The training modules (the step, the loop, the feeder, the device
+    augment, the logs and checkpoints) are found by the walk above and
+    import neither JAX, optax, ml_dtypes nor the JAX package: the port
+    keeps its own ``build_rpn_targets``, ``np_mask_to_extended_bbox``,
+    ``rotate_hw`` and train molds."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd=ROOT,
                           env=env, capture_output=True, text=True,

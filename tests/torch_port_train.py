@@ -31,6 +31,8 @@ from cfun_tpu_torch.train.targets import TargetDraws, build_rpn_targets
 # in different orders): loss parts, each gradient leaf against its largest
 # magnitude, updated parameters in absolute terms
 PARTS_RTOL = 1e-5
+LOSS_KEYS = ("rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+             "mrcnn_bbox_loss", "mrcnn_mask_loss", "mrcnn_mask_edge_loss")
 GRAD_REL = 1e-4
 PARAM_ATOL = 1e-6
 
