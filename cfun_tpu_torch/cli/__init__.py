@@ -7,8 +7,7 @@ from typing import Optional, Tuple
 
 def parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
     """'DATA[,SPACE]' -> (data, space), the ``--mesh`` value of the
-    trainer.  ``train_model`` takes one device (data * space == 1);
-    training over several devices is not ported yet."""
+    trainer (``train_model(mesh_spec=...)``)."""
     if not spec:
         return None
     parts = [int(p) for p in spec.split(",")]
@@ -17,18 +16,25 @@ def parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
     return (parts[0], parts[1] if len(parts) == 2 else 1)
 
 
-def require_one_device(parser, spec: Optional[str]
-                       ) -> Optional[Tuple[int, int]]:
-    """``--mesh`` parsed; stop with an error (exit code 2) when it asks for
-    more than one device: multi-device training is not yet ported
-    (ROADMAP.md A.6)."""
+def require_mesh(parser, spec: Optional[str], device: str
+                 ) -> Optional[Tuple[int, int]]:
+    """``--mesh`` parsed.  On CUDA each of its DATA x SPACE ranks takes a
+    card of its own (NCCL): with fewer cards visible, stop with an error
+    (exit code 2) that names how many there are, rather than train on
+    fewer.  On the CPU (``--device cpu``) the ranks are gloo processes."""
+    import torch
+
+    from cfun_tpu_torch.parallel.mesh import rank_devices
+
     try:
         mesh = parse_mesh(spec)
     except ValueError as e:
         parser.error(str(e))
-    if mesh is not None and mesh[0] * mesh[1] > 1:
-        parser.error(f"--mesh {spec}: multi-device training is not yet "
-                     "ported (ROADMAP.md A.6); train on one device")
+    if mesh is not None and torch.device(device).type == "cuda":
+        try:
+            rank_devices(mesh[0] * mesh[1], "cuda")
+        except ValueError as e:
+            parser.error(f"--mesh {spec}: {e}")
     return mesh
 
 

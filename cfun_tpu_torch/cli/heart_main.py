@@ -18,8 +18,9 @@ the optimizer and the epoch count, or a reference PyTorch checkpoint) or
 from seeded random weights ('none'), writing ``train_metrics.jsonl`` and
 ``model.npz`` under ``--logs``.  ``--aug-device`` rotates and targets on
 the device; ``--device-cache`` (with it) keeps the molds in device memory.
-``--mesh`` with more than one device stops: multi-device training is not
-ported yet.
+``--mesh DATA[,SPACE]`` trains on DATA x SPACE ranks (one card a rank on
+CUDA, gloo processes with ``--device cpu``; fewer cards than ranks stop
+with an error).
 
 ``test`` runs the full inference stack on labeled volumes, reports per-class
 mask IoU (and Dice -- the paper's headline metric) plus per-volume latency,
@@ -184,8 +185,11 @@ def main(argv=None):
     parser.add_argument("--epochs", default=None, type=int)
     parser.add_argument("--workers", default=8, type=int)
     parser.add_argument("--mesh", default=None, metavar="DATA[,SPACE]",
-                        help="train over a device mesh (one device only: "
-                             "multi-device training is not yet ported)")
+                        help="train over DATA x SPACE ranks: DATA volumes "
+                             "a step, each volume's mask U-Net split along "
+                             "D over SPACE ranks (with shard_unet_spatial); "
+                             "one card a rank on CUDA (NCCL), gloo "
+                             "processes with --device cpu")
     parser.add_argument("--aug-device", action="store_true",
                         help="train: rotation, GT box and RPN targets on "
                              "the device")
@@ -208,7 +212,7 @@ def main(argv=None):
     import contextlib
 
     from cfun_tpu_torch.cli import (inference_params, require_device,
-                                    require_one_device)
+                                    require_mesh)
     from cfun_tpu_torch.config import (exact_reference_overrides,
                                        heart_config, heart_inference_config)
     from cfun_tpu_torch.utils.profiling import device_trace
@@ -223,8 +227,8 @@ def main(argv=None):
             # the device mold cache holds angle-independent molds, which
             # only exist when the rotation happens on the device
             raise SystemExit("--device-cache requires --aug-device")
-        mesh = require_one_device(parser, args.mesh)
         require_device(parser, args.device)
+        mesh = require_mesh(parser, args.mesh, args.device)
         cfg = heart_config(args.stage)
         if args.aug_device:
             cfg = cfg.replace(augment_on_device=True,

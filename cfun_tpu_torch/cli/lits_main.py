@@ -18,8 +18,9 @@ one option more, ``--device``:
 ``train`` runs ``train/loop.py::train_model`` on ``lits_config(stage)``
 over the cache (volumes 0-110 train, 111-130 validate), from a checkpoint
 or seeded random weights ('none'), writing ``train_metrics.jsonl`` and
-``model.npz`` under ``--logs``; ``--mesh`` with more than one device stops
-(multi-device training is not ported yet).
+``model.npz`` under ``--logs``; ``--mesh DATA[,SPACE]`` trains on DATA x
+SPACE ranks (one card a rank on CUDA, gloo processes with ``--device
+cpu``; fewer cards than ranks stop with an error).
 ``test`` reports box IoU vs the extended GT box in every stage and
 per-class mask IoU after 'beginning' (LiTS_main.py:285-367), over the
 cached volumes from index ``--limit`` on; ``submit`` exports test-set
@@ -197,8 +198,11 @@ def main(argv=None):
     parser.add_argument("--epochs", default=None, type=int)
     parser.add_argument("--workers", default=8, type=int)
     parser.add_argument("--mesh", default=None, metavar="DATA[,SPACE]",
-                        help="train over a device mesh (one device only: "
-                             "multi-device training is not yet ported)")
+                        help="train over DATA x SPACE ranks: DATA volumes "
+                             "a step, each volume's mask U-Net split along "
+                             "D over SPACE ranks (with shard_unet_spatial); "
+                             "one card a rank on CUDA (NCCL), gloo "
+                             "processes with --device cpu")
     parser.add_argument("--exact", action="store_true",
                         help="disable every wire/unmold approximation for "
                              "reference-exact numerics at latency cost")
@@ -218,7 +222,7 @@ def main(argv=None):
     import contextlib
 
     from cfun_tpu_torch.cli import (inference_params, require_device,
-                                    require_one_device)
+                                    require_mesh)
     from cfun_tpu_torch.config import (exact_reference_overrides,
                                        lits_config, lits_inference_config)
     from cfun_tpu_torch.utils.profiling import device_trace
@@ -228,8 +232,8 @@ def main(argv=None):
     trace_ctx = (device_trace(args.trace) if args.trace
                  else contextlib.nullcontext())
     if args.command == "train":
-        mesh = require_one_device(parser, args.mesh)
         require_device(parser, args.device)
+        mesh = require_mesh(parser, args.mesh, args.device)
         cfg = lits_config(args.stage)
         from cfun_tpu_torch.data.datasets import LiTSDataset
         from cfun_tpu_torch.train.loop import train_model

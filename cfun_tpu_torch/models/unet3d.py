@@ -21,6 +21,14 @@ compute the same map: 'explicit' (nearest upsample, then the conv) and
 the phase forms (``heads.apply_mask_head``), the up-convs only where
 their input has at least ``PHASE_MIN_VOXELS`` voxels: below that the 8x
 wider conv is mostly padding.
+
+With a process group (``apply_unet(group=...)``) the input is one rank's
+shard of the crops split along D, and the same graph runs with halo
+convs and instance norms whose statistics are summed over the group
+(``parallel/halo.py``): the shard of the dense graph's output.  That
+graph takes the explicit up-convs and head, and the 1-channel entry conv
+as a halo conv (the JAX package's ``axis_name`` branch,
+``cfun_tpu/models/unet3d.py:213-277``).
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
                dropout_rate: float = 0.0,
                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
                dtype=torch.float32, head_impl: str = "explicit",
-               up_impl: str = "explicit") -> torch.Tensor:
+               up_impl: str = "explicit", group=None) -> torch.Tensor:
     """x: [B, c_in, D, H, W] crop -> class logits [B, n_classes, D', H',
     W'] in ``dtype``, where D' = D (2D at stage 'finetune').
 
@@ -64,7 +72,10 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     (``nn.channel_dropout``), without them the graph is deterministic.
     ``up_impl``: the decoder up-convs' form, 'phase' where the input has
     at least ``PHASE_MIN_VOXELS`` voxels, else 'explicit'.  ``head_impl``:
-    the finetune head's form."""
+    the finetune head's form.  ``group``: ``x`` is this rank's D shard
+    of crops split over the ranks of that process group (module
+    docstring); the keep masks, per channel, are the same on every
+    shard, and both forms are 'explicit'."""
     _check_impl("head_impl", head_impl)
     _check_impl("up_impl", up_impl)
     masks = iter(()) if dropout_masks is None or dropout_rate == 0.0 \
@@ -75,10 +86,22 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
         return v if keep is None else nn.channel_dropout(v, dropout_rate,
                                                          keep)
 
-    def conv(p, v, stride=1):
-        return nn.conv3d(p, v, stride=stride, dtype=dtype)
+    if group is None:
+        def conv(p, v, stride=1):
+            return nn.conv3d(p, v, stride=stride, dtype=dtype)
 
-    inorm = nn.instance_norm
+        inorm = nn.instance_norm
+    else:
+        from cfun_tpu_torch.parallel.halo import (halo_conv3d,
+                                                  instance_norm_sharded)
+
+        def conv(p, v, stride=1):
+            return halo_conv3d(p, v, group, stride=stride, dtype=dtype)
+
+        def inorm(v):
+            return instance_norm_sharded(v, group)
+
+        head_impl = up_impl = "explicit"
     lrelu = nn.leaky_relu
 
     def norm_lrelu_conv(p, v):
@@ -92,10 +115,13 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
         v = lrelu(inorm(v))
         if up_impl == "phase" and nsp >= PHASE_MIN_VOXELS:
             return lrelu(inorm(nn.upsample2_conv(p, v, dtype=dtype)))
-        return lrelu(inorm(nn.upsample2_conv_explicit(p, v, dtype=dtype)))
+        return lrelu(inorm(conv(p, nn.upsample_nearest(v.to(dtype)))))
 
     # ---- level 1 context
-    out = nn.conv3d_1ch(params["c1_1"], x, dtype=dtype)
+    if group is None:
+        out = nn.conv3d_1ch(params["c1_1"], x, dtype=dtype)
+    else:
+        out = conv(params["c1_1"], x)
     residual = out
     out = drop(conv(params["c1_2"], lrelu(out)))
     out = conv(params["c1_lrelu_conv"], lrelu(out))
@@ -148,9 +174,13 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
     ds3_c = conv(params["ds3"], ds3)
     out = out_pred + nn.upsample_nearest(ds2_up + ds3_c)
     if stage == "finetune":
-        head = nn.upsample2_conv_residual if head_impl == "phase" \
-            else nn.upsample2_conv_residual_explicit
-        out = head(params["out_upscale"], out, dtype=dtype)
+        if head_impl == "phase":
+            out = nn.upsample2_conv_residual(params["out_upscale"], out,
+                                             dtype=dtype)
+        else:
+            # upsample2_conv_residual_explicit, with this graph's conv
+            up = nn.upsample_nearest(out.to(dtype))
+            out = up + conv(params["out_upscale"], up)
     return out
 
 

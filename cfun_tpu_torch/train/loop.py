@@ -1,6 +1,6 @@
-"""The epoch loop of training (the port of ``cfun_tpu/train/loop.py``,
-one device): the threaded feeder, the step, validation and checkpoints on
-the JAX package's cadence.
+"""The epoch loop of training (the port of ``cfun_tpu/train/loop.py``):
+the threaded feeder, the step, validation and checkpoints on the JAX
+package's cadence, on one device or on a (data, space) mesh of ranks.
 
 Schedule from the reference (model.py:1516-1573): one random rotation
 angle an epoch, ``steps_per_epoch`` steps, validation and a checkpoint
@@ -20,6 +20,18 @@ the uninterrupted one:
   :func:`step_draws`; validation's from ``(seed + 0x5EED, epoch)``.  They
   cannot equal the JAX package's ``jax.random`` keys.
 
+On a mesh (``mesh_spec=(data, space)``, ``parallel/``) every rank runs
+this loop in its own process.  Each step takes ``data`` volumes, one a
+mesh row: row ``r``'s feeder takes the strided shard ``r`` of the
+epoch's plan, the items the JAX package's single-controller loop puts in
+row ``r`` of its stacked batches; the ranks of a row build the same
+items.  The per-step draws come from a generator seeded from (seed,
+epoch, row), so a row's ranks draw the same.  The losses logged and the
+validation loss are the means over the rows.  Only rank 0 prints and
+writes checkpoints; each rank logs its metrics under a ``-rank{i}`` tag
+(the JAX package's ``-host{i}``); every rank resumes from the same
+checkpoint.
+
 The host never waits on the device in a step but for the progress print
 every 5 steps: the epoch's loss sums stay on the device, and the next
 item's upload is issued from page-locked memory on a copy stream while
@@ -36,10 +48,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from cfun_tpu_torch import native
 from cfun_tpu_torch import weights as W
 from cfun_tpu_torch.config import Config
 from cfun_tpu_torch.data.feeder import TrainFeeder
 from cfun_tpu_torch.ops.anchors import config_anchors
+from cfun_tpu_torch.parallel.launch import launch
+from cfun_tpu_torch.parallel.mesh import (make_parallel_train_step,
+                                          mean_over_rows)
 from cfun_tpu_torch.train.step import (TrainDraws, draw_train,
                                        make_train_step, train_forward_any)
 from cfun_tpu_torch.utils import checkpoint
@@ -55,13 +71,15 @@ def step_draws(cfg: Config, generator: torch.Generator,
     return draw_train(cfg, generator, device)
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+def epoch_generator(seed: int, epoch: int, device,
+                    row: Optional[int] = None) -> torch.Generator:
     """The generator of an epoch's per-step draws, on ``device``: a
-    function of (seed, epoch) alone (the trailing tag keeps it apart from
-    the plan's and the angle's NumPy streams)."""
+    function of (seed, epoch) alone, and on a mesh of (seed, epoch, row)
+    (the tag 3 keeps it apart from the plan's and the angle's NumPy
+    streams)."""
+    key = (seed, epoch, 3) if row is None else (seed, epoch, 3, row)
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.default_rng((seed, epoch, 3)).integers(
-        2**62)))
+    gen.manual_seed(int(np.random.default_rng(key).integers(2**62)))
     return gen
 
 
@@ -127,24 +145,59 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                 epochs: Optional[int] = None, seed: int = 0,
                 num_workers: int = 8,
                 mesh_spec: Optional[Tuple[int, int]] = None,
-                device="cuda") -> str:
+                device="cuda", backend: Optional[str] = None,
+                devices=None) -> Optional[str]:
     """Train to ``epochs`` (default ``cfg.epochs``) on ``device``;
     returns the final checkpoint's path.  ``weights``: a checkpoint to
     start from (the port's or the JAX package's ``.npz``, which resumes
     the optimizer and the epoch, or a reference PyTorch checkpoint), or
-    None / 'none' for ``weights.init_params(cfg, seed)``.  ``mesh_spec``
-    (data, space) must be one device."""
-    if mesh_spec is not None and mesh_spec[0] * mesh_spec[1] > 1:
-        raise ValueError(
-            f"--mesh {mesh_spec}: multi-device training is not yet ported "
-            "(ROADMAP.md A.6); train on one device")
+    None / 'none' for ``weights.init_params(cfg, seed)``.
+
+    ``mesh_spec=(data, space)``: train on ``data * space`` ranks
+    (``parallel/launch.py``; module docstring): one card a rank under
+    NCCL on CUDA, gloo ranks on the CPU with ``device='cpu'``.
+    ``backend`` and ``devices`` (one device a rank, e.g. ``["cuda:0",
+    "cuda:0"]`` with ``backend='gloo'`` to rehearse on one card) override
+    that; nothing changes the backend or the devices by itself, and fewer
+    cards than ranks raise ValueError before any rank starts.  Under
+    ``torchrun`` this process is one rank, and ranks other than 0 return
+    None."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; train on the CPU with "
                            "device='cpu'")
+    args = (cfg, train_dataset, val_dataset, log_dir, weights, epochs, seed,
+            num_workers)
+    if mesh_spec is None:
+        return _train(None, device, *args)
+    if cfg.device_mold_cache:
+        raise ValueError(
+            "device_mold_cache is a single-device optimization: the mesh "
+            "batch path stacks host rows (and multi-controller assembly "
+            "requires process-local host arrays)")
+    # the feeder's host ops, built here once rather than by every rank
+    native.library()
+    return launch(_train_rank, *mesh_spec, args=args,
+                  devices=devices or device.type, backend=backend)[0]
+
+
+def _train_rank(mesh, *args) -> Optional[str]:
+    return _train(mesh, mesh.device, *args)
+
+
+def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
+           log_dir: str, weights: Optional[str], epochs: Optional[int],
+           seed: int, num_workers: int) -> Optional[str]:
+    """The loop on ``device``, alone (``mesh`` None) or as one rank of
+    ``mesh``; the final checkpoint's path (None on ranks other than 0)."""
+    main = mesh is None or mesh.rank == 0
+    row = None if mesh is None else mesh.data_index
     epochs = epochs or cfg.epochs
     anchors = config_anchors(cfg)
-    init_state, step = make_train_step(cfg, anchors)
+    if mesh is None:
+        init_state, step = make_train_step(cfg, anchors)
+    else:
+        init_state, step = make_parallel_train_step(cfg, anchors, mesh)
     state = init_state(W.to_device(W.init_params(cfg, seed=seed), device))
     start_epoch = 0
     if weights and weights.lower() != "none" and (
@@ -157,17 +210,25 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                 leaf.copy_(loaded[path])
         state = state._replace(step=int(meta.get("step", 0)))
         start_epoch = int(meta.get("epoch", 0))
-        print(f"Resumed from {weights} at epoch {start_epoch} "
-              f"({meta.get('source', 'npz')})", flush=True)
+        if main:
+            print(f"Resumed from {weights} at epoch {start_epoch} "
+                  f"({meta.get('source', 'npz')})", flush=True)
 
+    tag = "" if mesh is None or mesh.size == 1 else f"-rank{mesh.rank}"
     run_dir = os.path.join(log_dir, cfg.name,
-                           time.strftime("%Y-%m-%d_%H-%M-%S"))
+                           time.strftime("%Y-%m-%d_%H-%M-%S") + tag)
     os.makedirs(run_dir, exist_ok=True)
     logger = MetricsLogger(run_dir)
+    shard = {} if mesh is None else dict(shard_index=mesh.data_index,
+                                         num_shards=mesh.data)
+    if mesh is not None and main:
+        print(f"Mesh training: data {mesh.data} x space {mesh.space} "
+              f"({mesh.data} volumes/step, {mesh.backend} on "
+              f"{mesh.device.type})", flush=True)
     feeder = TrainFeeder(train_dataset, cfg, anchors, seed=seed,
-                         num_workers=num_workers)
+                         num_workers=num_workers, **shard)
     val_feeder = TrainFeeder(val_dataset, cfg, anchors, seed=seed + 1,
-                             num_workers=max(2, num_workers // 2))
+                             num_workers=max(2, num_workers // 2), **shard)
     up = Uploader(device, resident=cfg.device_mold_cache)
     anchors_dev = torch.from_numpy(anchors).to(device)
     ckpt_path = os.path.join(run_dir, "model")
@@ -177,7 +238,7 @@ def train_model(cfg: Config, train_dataset, val_dataset,
         for epoch in range(start_epoch + 1, epochs + 1):
             t0 = time.time()
             angle = epoch_angle(cfg, seed, epoch)
-            gen = epoch_generator(seed, epoch, device)
+            gen = epoch_generator(seed, epoch, device, row)
             items = feeder.epoch(angle, cfg.steps_per_epoch,
                                  epoch_index=epoch)
             sent, wait = up.bytes, 0.0
@@ -196,7 +257,8 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                 wait += time.perf_counter() - tw
                 sums = metrics if sums is None else {
                     k: sums[k] + v for k, v in metrics.items()}
-                if (i + 1) % 5 == 0 or i + 1 == cfg.steps_per_epoch:
+                if main and ((i + 1) % 5 == 0
+                             or i + 1 == cfg.steps_per_epoch):
                     progress(i + 1, cfg.steps_per_epoch,
                              {"loss": float(metrics["total_loss"])},
                              prefix=f"epoch {epoch} ")
@@ -213,12 +275,14 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                         "steps": i, "feeder_wait_s": wait,
                         "feeder_item_ms": item_ms,
                         "h2d_bytes": up.bytes - sent})
-            print(f"Epoch {epoch}/{epochs} loss {total_sum:.5f} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            if main:
+                print(f"Epoch {epoch}/{epochs} loss {total_sum:.5f} "
+                      f"({time.time() - t0:.1f}s)", flush=True)
 
             if epoch % cfg.val_every_epochs == 0:
                 val_loss = 0.0
-                vgen = epoch_generator(seed + VAL_SEED_OFFSET, epoch, device)
+                vgen = epoch_generator(seed + VAL_SEED_OFFSET, epoch, device,
+                                       row)
                 steps = min(cfg.validation_steps, val_dataset.num_images)
                 with torch.no_grad():
                     for item in val_feeder.epoch(angle, steps,
@@ -226,22 +290,26 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                         batch = up.ready(up.put(item))
                         total, _ = train_forward_any(
                             state.params, batch, anchors_dev, cfg,
-                            step_draws(cfg, vgen, device))
+                            step_draws(cfg, vgen, device), mesh=mesh)
+                        if mesh is not None:
+                            total = mean_over_rows(total, mesh)
                         val_loss += float(total) / steps
                 val_feeder.pop_times()
-                t_save = time.perf_counter()
-                # only the fetch to the host blocks here; the write
-                # overlaps the next epoch
-                checkpoint.save_async(ckpt_path, state.params, epoch=epoch,
-                                      step=state.step,
-                                      opt_state=state.opt_state,
-                                      meta={"name": cfg.name,
-                                            "stage": cfg.stage,
-                                            "loss": total_sum,
-                                            "val_loss": val_loss})
-                logger.log({"epoch": epoch, "val_loss": val_loss,
-                            "save_async_s": time.perf_counter() - t_save})
-                print(f"  val loss {val_loss:.5f}", flush=True)
+                record = {"epoch": epoch, "val_loss": val_loss}
+                if main:
+                    t_save = time.perf_counter()
+                    # only the fetch to the host blocks here; the write
+                    # overlaps the next epoch
+                    checkpoint.save_async(ckpt_path, state.params,
+                                          epoch=epoch, step=state.step,
+                                          opt_state=state.opt_state,
+                                          meta={"name": cfg.name,
+                                                "stage": cfg.stage,
+                                                "loss": total_sum,
+                                                "val_loss": val_loss})
+                    record["save_async_s"] = time.perf_counter() - t_save
+                    print(f"  val loss {val_loss:.5f}", flush=True)
+                logger.log(record)
     finally:
         feeder.close()
         val_feeder.close()
@@ -249,6 +317,8 @@ def train_model(cfg: Config, train_dataset, val_dataset,
         # never hide the loop's own exception behind a writer failure
         checkpoint.flush(raise_errors=False)
 
+    if not main:
+        return None
     meta = {"name": cfg.name, "stage": cfg.stage}
     if total_sum == total_sum:  # NaN <=> no epoch ran: no loss
         meta["loss"] = total_sum

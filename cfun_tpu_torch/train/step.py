@@ -20,6 +20,12 @@ Random draws (the ROI sampler's uniforms and the U-Net's dropout keep
 masks, ``TrainDraws``) are taken before any compute, from a
 ``torch.Generator`` or passed in: a draw inside the checkpointed U-Net
 would be drawn again when the backward pass recomputes it.
+
+On a mesh (``parallel/mesh.py``) the forward takes the rank's ``Mesh``:
+with ``cfg.shard_unet_spatial`` and more than one space rank, the mask
+U-Net and its losses are split along the crops' D over the row's ranks
+(``parallel/halo.py``).  ``batched_train_forward`` is the mean over
+several volumes on one device, the dense reference of the mesh step.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from cfun_tpu_torch.ops.augment import (AugmentDraws, AugTrainBatch,
                                         device_augment, draw_augment)
 from cfun_tpu_torch.ops.sample3d import roi_align
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
+from cfun_tpu_torch.parallel.halo import (shard_map_unet,
+                                          sharded_mask_losses)
 from cfun_tpu_torch.train import losses as L
 from cfun_tpu_torch.train.targets import (TargetDraws, detection_targets,
                                           draw_targets)
@@ -302,7 +310,7 @@ def make_optimizer(cfg: Config, params) -> SGDChain:
 def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
                   cfg: Config, draws: Optional[TrainDraws] = None,
                   generator: Optional[torch.Generator] = None,
-                  nms: cfun.NmsFn = sorted_nms
+                  nms: cfun.NmsFn = sorted_nms, mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward + all losses for one example on the batch's device.
     Returns (total, unweighted parts).
@@ -310,7 +318,11 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     ``draws``: the step's random draws; without them they are drawn from
     ``generator`` first (:func:`draw_train`).  ``nms``: the proposal
     layer's NMS (``ops/sorted_nms.py::sorted_nms``, the kernel on CUDA
-    tensors)."""
+    tensors).  ``mesh``: this rank's ``parallel.mesh.Mesh``; with
+    ``cfg.shard_unet_spatial`` and ``mesh.space > 1`` the mask U-Net and
+    its losses run split along D over the row's ranks
+    (``parallel/halo.py``), and the results are the row's, the same on
+    each of its ranks."""
     train_det, train_mask_branch, edge_on = stage_flags(cfg)
     dt = cfun.compute_dtype(cfg)
     image = batch.image
@@ -356,21 +368,39 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
 
     if train_mask_branch:
         crops = roi_align(image[0], tgt.pos_rois, tuple(cfg.mask_pool_size))
-
-        def mask_fn(p, c):
-            # the explicit up-conv and head forms: inside fwd + bwd the
-            # phase forms hold more memory (the JAX package's choice,
-            # train/step.py:189-198)
-            return apply_mask_head(
-                p, c, stage=cfg.stage, dropout_rate=cfg.unet_dropout_rate,
-                dropout_masks=draws.dropout_masks, dtype=dt,
-                head_impl="explicit", up_impl="explicit")
+        shard_spatial = (mesh is not None and cfg.shard_unet_spatial
+                         and mesh.space > 1)
+        if shard_spatial:
+            def mask_fn(p, c):
+                return shard_map_unet(
+                    mesh, p["unet"], c, stage=cfg.stage,
+                    dropout_rate=cfg.unet_dropout_rate,
+                    dropout_masks=draws.dropout_masks, dtype=dt)
+        else:
+            def mask_fn(p, c):
+                # the explicit up-conv and head forms: inside fwd + bwd
+                # the phase forms hold more memory (the JAX package's
+                # choice, train/step.py:189-198)
+                return apply_mask_head(
+                    p, c, stage=cfg.stage,
+                    dropout_rate=cfg.unet_dropout_rate,
+                    dropout_masks=draws.dropout_masks, dtype=dt,
+                    head_impl="explicit", up_impl="explicit")
 
         if cfg.remat_unet:
             mask_logits = checkpoint(mask_fn, params["mask"], crops,
                                      use_reentrant=False)
         else:
             mask_logits = mask_fn(params["mask"], crops)
+        if shard_spatial:
+            # the targets, the CE and the edge maps stay split too
+            mask_l, edge_l = sharded_mask_losses(
+                mesh, tgt.masks, tgt.pos_valid, mask_logits, cfg,
+                edge_on=edge_on)
+            out["mrcnn_mask_loss"] = mask_l
+            if edge_on:
+                out["mrcnn_mask_edge_loss"] = edge_l
+            return L.weighted_total(out, cfg), out
         out["mrcnn_mask_loss"] = L.mask_loss(tgt.masks, tgt.pos_valid,
                                              mask_logits, cfg)
         if edge_on:
@@ -385,7 +415,7 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
 def train_forward_any(params, batch, anchors: torch.Tensor, cfg: Config,
                       draws: Optional[TrainDraws] = None,
                       generator: Optional[torch.Generator] = None,
-                      nms: cfun.NmsFn = sorted_nms):
+                      nms: cfun.NmsFn = sorted_nms, mesh=None):
     """:func:`train_forward` that also takes an ``AugTrainBatch``
     (``cfg.augment_on_device``): the rotation, the re-z-score and the RPN
     targets run on the device first (``ops/augment.py``)."""
@@ -399,25 +429,51 @@ def train_forward_any(params, batch, anchors: torch.Tensor, cfg: Config,
                              "(cfg.augment_on_device)")
         batch = device_augment(batch, anchors, cfg, draws.augment)
     return train_forward(params, batch, anchors, cfg, draws=draws,
-                         generator=generator, nms=nms)
+                         generator=generator, nms=nms, mesh=mesh)
+
+
+def unstack_batch(batch, i: int):
+    """Item ``i`` of a batch stacked by ``parallel.mesh.stack_batches``."""
+    return type(batch)(*(x[i] for x in batch))
+
+
+def batched_train_forward(params, batch, anchors: torch.Tensor, cfg: Config,
+                          draws: List[TrainDraws],
+                          nms: cfun.NmsFn = sorted_nms
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mean of :func:`train_forward_any` over a stacked batch (leading
+    axis: volumes, ``parallel.mesh.stack_batches``), volume ``i`` with
+    ``draws[i]``, on one device: (mean total, mean parts), the dense
+    reference of the mesh step (``cfun_tpu/train/step.py:241-253``)."""
+    n = len(draws)
+    results = [train_forward_any(params, unstack_batch(batch, i), anchors,
+                                 cfg, draws=draws[i], nms=nms)
+               for i in range(n)]
+    total = sum(t for t, _ in results) / n
+    return total, {k: sum(p[k] for _, p in results) / n
+                   for k in results[0][1]}
 
 
 def loss_and_grads(params, batch: TrainBatch, anchors: torch.Tensor,
                    cfg: Config, draws: Optional[TrainDraws] = None,
                    generator: Optional[torch.Generator] = None,
-                   nms: cfun.NmsFn = sorted_nms):
+                   nms: cfun.NmsFn = sorted_nms, mesh=None):
     """:func:`train_forward_any` and the gradients of its total with respect
     to the trainable leaves: (total, parts, {tree path: gradient}), a
     leaf the loss does not reach getting zeros (its update is then the
-    weight decay alone, as in the JAX package)."""
+    weight decay alone, as in the JAX package).  With a ``mesh`` the
+    gradients are those of this rank's share of the step's objective,
+    ``total / mesh.size`` (``parallel/mesh.py``); the total and the parts
+    returned are the row's."""
     flat = weights._leaves(params)
     train = weights._leaves(trainable_mask(params, cfg))
     paths = [p for p in flat if train[p]]
     total, parts = train_forward_any(params, batch, anchors, cfg,
                                      draws=draws, generator=generator,
-                                     nms=nms)
+                                     nms=nms, mesh=mesh)
     leaves = [flat[p] for p in paths]
-    grads = torch.autograd.grad(total, leaves, allow_unused=True) \
+    share = total if mesh is None else total / mesh.size
+    grads = torch.autograd.grad(share, leaves, allow_unused=True) \
         if total.requires_grad else [None] * len(leaves)
     return total.detach(), {k: v.detach() for k, v in parts.items()}, {
         p: torch.zeros_like(x) if g is None else g

@@ -6,17 +6,20 @@
     python3 chip_smoke.py lits       # the shared phases + the LiTS paths
     python3 chip_smoke.py schedule   # env build k1, then phase schedule
     python3 chip_smoke.py schedule START.npz  # the same from a checkpoint
+    python3 chip_smoke.py multicard  # env build k1, then phase multicard
+                                     # (four cards)
 
 With no argument it needs all three checkpoints (weights/heart_synth.npz,
 weights/heart_synth_ft.npz, weights/lits_synth.npz); ``heart`` needs the
-first two, ``lits`` the third, ``schedule`` none.  A missing checkpoint is
+first two, ``lits`` the third, ``schedule`` none, ``multicard`` the
+first two.  A missing checkpoint is
 an error (exit 1).
 
 Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
 (shared: env build k1 k2 train_tiny; heart: serve serve_fused serve_ft
-cli_heart train_heart train_loop_heart; LiTS: serve_lits serve_lits_fused
-cli_lits train_lits train_loop_lits; then stream k2_served profile small,
-each on the families that ran):
+cli_heart train_heart train_loop_heart mesh_heart; LiTS: serve_lits
+serve_lits_fused cli_lits train_lits train_loop_lits mesh_lits; then
+stream k2_served profile small, each on the families that ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -119,6 +122,30 @@ each on the families that ran):
           steps) on the .npy cache of seeded 400x400x280 volumes (train
           ids 0-3, validation id 111), with train_loop_heart's checks and
           numbers
+  mesh_heart  training over a mesh of ranks (cfun_tpu_torch/parallel/,
+          started by parallel/launch.py as processes of their own), heart
+          at full width from the checkpoints, each rank on volume 0 or 1
+          of the cli_heart set: (1, 1) under NCCL from heart_synth.npz, 6
+          steps, the losses and the parameters bit-equal to 6 plain steps
+          in this process with the same draws; (2, 1), two ranks on
+          cuda:0 under gloo (NCCL takes one card a rank), 4 steps, the
+          first update equal to one process's step on the mean gradient
+          of the two volumes with the same draws (losses rtol 1e-4, each
+          leaf within 1e-5 of its largest magnitude); (1, 2) 'finetune'
+          with shard_unet_spatial from heart_synth_ft.npz in float32
+          (TF32 off), two gloo ranks on cuda:0, 2 steps, the mask and edge
+          losses against one dense step (rtol 1e-4), and the all-reduced
+          U-Net gradients as close to a float64 evaluation of them on the
+          dense step's crops as the dense step's (within twice its largest
+          gap, or 1e-4, of a leaf's largest magnitude), the peak memory by
+          rank beside the dense step's; on every path and rank
+          K1 exactly once a step at 1000->500 and equal to its plain
+          version on the first step's NMS inputs, its plain version and
+          K2 never, the parameters the same on every rank after every
+          step; each rank's s/step and gradient all-reduce ms (gloo on a
+          card stages through the host: a rehearsal's time, not NCCL's);
+          then the heart CLI's train --mesh N with N one more than the
+          cards stops with exit code 2
   schedule  (only with the argument 'schedule') the JAX package's
           synthetic heart schedule (benchmarks/train_synth.py's defaults:
           60 epochs of 15 steps, seed 0, the bf16 wire, from seeded
@@ -157,6 +184,14 @@ each on the families that ran):
           as train_heart, with the mask subtree unchanged and the loss's
           descent checked on the first update (the first step's draws and
           ROI sample held)
+  multicard  (only with the argument 'multicard', on four cards) the mesh
+          under NCCL, one card a rank: heart 'beginning' (4, 1), 4 steps
+          on held-out volumes 0-3, with mesh_heart's (2, 1) checks against
+          the mean-gradient step of the four; heart 'finetune' float32
+          (1, 2) across two cards with mesh_heart's (1, 2) checks
+  mesh_lits  lits_config('beginning') from weights/lits_synth.npz on a
+          (2, 1) mesh of two gloo ranks on cuda:0, 2 steps on held-out
+          volumes 0 and 1 of serve_lits, with mesh_heart's (2, 1) checks
   stream  Detector.detect_stream over four full-width heart volumes on the
           dense path: the same results as serial detect, in order, the
           sustained ms a volume beside the serial ms, the launch counts
@@ -806,10 +841,10 @@ def train_batch(cfg, molded, labels, device, seed=0):
         labels=torch.from_numpy(np.ascontiguousarray(packed))).to(device)
 
 
-def heart_train_batch(cfg, device):
-    """Volume 0 of the held-out heart set the cli_heart phase serves
-    (SyntheticDataset(**HEART_EVAL)), molded the NumPy way: the port's
-    trilinear mold and z-score, the labels by resize(order=0)."""
+def heart_train_batch(cfg, device, index=0):
+    """Volume ``index`` of the held-out heart set the cli_heart phase
+    serves (SyntheticDataset(**HEART_EVAL)), molded the NumPy way: the
+    port's trilinear mold and z-score, the labels by resize(order=0)."""
     import numpy as np
 
     from cfun_tpu_torch.data.datasets import SyntheticDataset
@@ -817,9 +852,10 @@ def heart_train_batch(cfg, device):
     from cfun_tpu_torch.data.resample import resize
 
     held = SyntheticDataset(cfg, **HEART_EVAL)
-    molded, _ = mold_volume(held.load_image(0), cfg)
+    molded, _ = mold_volume(held.load_image(index), cfg)
     d, h, w = cfg.image_shape
-    labels = np.rint(resize(held.load_mask(0), (h, w, d), order=0)).astype(
+    labels = np.rint(resize(held.load_mask(index), (h, w, d),
+                            order=0)).astype(
         np.int32).transpose(2, 0, 1)
     return train_batch(cfg, normalize_intensity(molded, cfg), labels, device)
 
@@ -2558,6 +2594,619 @@ def schedule_phase(tmp, counters, k1, dev, start="none"):
     return probe.launches, rec
 
 
+# Mesh paths (parallel/): the steps each takes, a rank's longest wait in a
+# collective, and the tolerances of a mesh step against one process's.
+# (2, 1) against the step on the mean gradient of its two items:
+# train_tiny's rtol 1e-4 (losses) and 1e-5 of each updated leaf's largest
+# magnitude, at the model's bf16 (both sides scale the same bf16 backward
+# by 1/2, exactly).  (1, 2) 'finetune' against the dense step: float32
+# with TF32 off on both sides (cuDNN picks other algorithms for the
+# shards' shapes, so the sums run in other orders): the mask and edge
+# losses to rtol 1e-4; the U-Net's gradients as close to a float64
+# evaluation of them on the dense step's crops as the dense step's: the
+# largest gap over the leaves (each over its leaf's largest magnitude)
+# within SHARD_F64_FACTOR times the dense step's, or SHARD_GRAD_FLOOR.
+# (A first criterion, 1e-3 of a leaf's largest magnitude between the split
+# and the dense gradients, failed on the card at 1.15e-3 on c1_2/w; on the
+# CPU both float32 evaluations sit ~1e-3 from float64 at the tiny
+# finetune config, so the float64 evaluation is the reference.)
+MESH_STEPS = {"heart 1x1": 6, "heart 2x1": 4, "heart 1x2 finetune": 2,
+              "lits 2x1": 2, "heart 4x1 nccl": 4,
+              "heart 1x2 finetune nccl": 2}
+MESH_TIMEOUT_S = 300
+MESH_LOSS_RTOL, MESH_LEAF_REL = 1e-4, 1e-5
+SHARD_LOSS_RTOL, SHARD_F64_FACTOR, SHARD_GRAD_FLOOR = 1e-4, 2.0, 1e-4
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _digest(params):
+    """(sha256 of every leaf's bytes in path order, the leaves on the
+    host)."""
+    import hashlib
+
+    from cfun_tpu_torch import weights
+
+    host = {p: v.detach().to("cpu", copy=True) for p, v in
+            weights._leaves(params).items()}
+    h = hashlib.sha256()
+    for p in sorted(host):
+        h.update(host[p].numpy().tobytes())
+    return h.hexdigest(), host
+
+
+def mesh_rank(mesh, cfg, ckpt, batch_file, n_steps, grads_of=None):
+    """One rank of a mesh path (run in the ranks parallel/launch.py
+    starts): the checkpoint ``ckpt``, its row's batch from ``batch_file``
+    (a list by data index), ``n_steps`` steps of make_parallel_train_step,
+    each with draws from a generator seeded TRAIN_SEED + data index (the
+    same on a row's ranks, re-seeded every step).  Every kernel's launch
+    count is set to 0 just before the steps and read just after; K1's
+    plain version is counted (it must not run); K1 is held against it on
+    the first step's NMS inputs after the counts are read.  Float32
+    configs run with TF32 off.  Returns each step's seconds, metrics and
+    parameter digest, the launches, the gradient all-reduce's ms a step,
+    the peak memory; rank 0 also its parameters after the first step and,
+    with ``grads_of`` (a tree-path prefix, '' for all), the first step's
+    all-reduced gradients of those leaves."""
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops import fused_conv as k2
+    from cfun_tpu_torch.ops import sorted_nms as k1
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.parallel import mesh as pmesh
+    from cfun_tpu_torch.train import step as tstep
+
+    if cfg.compute_dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    params, _ = weights.load_npz(os.path.join(ROOT, ckpt), cfg)
+    batch = torch.load(batch_file, weights_only=False)[mesh.data_index]
+    batch = batch.to(dev)
+    init, step = pmesh.make_parallel_train_step(cfg, config_anchors(cfg),
+                                                mesh)
+    state = init(weights.to_device(params, dev))
+    del params
+    counters = {"sorted_nms": k1, "fused_conv3d": k2}
+    seen, plain_calls, captured = [], [0], {}
+    orig_plain, orig_reduce = (k1.sorted_nms_reference,
+                               pmesh.all_reduce_gradients)
+
+    def nms(boxes, valid, thr, k):
+        idx, keep = k1.sorted_nms(boxes, valid, thr, k)
+        if not seen:
+            seen.append((boxes.clone(), valid.clone(), thr, k, idx.clone(),
+                         keep.clone()))
+        return idx, keep
+
+    def plain(*args):
+        plain_calls[0] += 1
+        return orig_plain(*args)
+
+    def reduce(grads, group=None):
+        out = orig_reduce(grads, group)
+        if grads_of is not None and mesh.rank == 0 and not captured:
+            captured.update({p: g.detach().to("cpu", copy=True)
+                             for p, g in out.items()
+                             if p.startswith(grads_of)})
+        return out
+
+    secs, losses, digests, first = [], [], [], None
+    cuda = dev.type == "cuda"
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    k1.sorted_nms_reference, pmesh.all_reduce_gradients = plain, reduce
+    reset_counts(counters)
+    try:
+        for i in range(n_steps):
+            draws = tstep.draw_train(
+                cfg, torch.Generator().manual_seed(TRAIN_SEED +
+                                                   mesh.data_index), dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, draws, nms=nms)
+            parts = {k: float(v) for k, v in metrics.items()}
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+            losses.append(parts)
+            digest, host = _digest(state.params)
+            digests.append(digest)
+            if i == 0 and mesh.rank == 0:
+                first = host
+        launches = {name: mod.launches for name, mod in counters.items()}
+        shapes = {name: dict(mod.launch_shapes)
+                  for name, mod in counters.items()}
+        plain_in_steps = plain_calls[0]
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    finally:
+        k1.sorted_nms_reference, pmesh.all_reduce_gradients = (orig_plain,
+                                                               orig_reduce)
+    boxes, valid, thr, k, idx, keep = seen[0]
+    ridx, rkeep = orig_plain(boxes, valid, thr, k)
+    return {"rank": mesh.rank, "data_index": mesh.data_index,
+            "space_index": mesh.space_index, "backend": mesh.backend,
+            "device": str(dev), "s_per_step": secs, "losses": losses,
+            "digests": digests, "launches": launches, "shapes": shapes,
+            "plain_calls": plain_in_steps,
+            "k1_exact": bool(torch.equal(idx, ridx) and
+                             torch.equal(keep, rkeep)),
+            "kept": int(keep.sum()), "allreduce_ms": step.allreduce_ms(),
+            "peak_bytes": peak, "first_params": first,
+            "grads": captured or None}
+
+
+def run_mesh(label, cfg, ckpt, batches, n_steps, layout, devices, backend,
+             tmp, grads_of=None):
+    """Launch ``mesh_rank`` on a ``layout`` (data, space) mesh; check each
+    rank's launches (K1 exactly once a step at K1_TRAIN_SHAPE, its plain
+    version and K2 never, K1 equal to its plain version on the first
+    step's NMS inputs) and that every rank holds the same parameters
+    after every step; print s/step, the all-reduce's ms and the peak
+    memory by rank.  Returns (launches summed over the ranks, the ranks'
+    records)."""
+    import numpy as np
+    import torch
+
+    from cfun_tpu_torch.parallel.launch import launch
+
+    batch_file = os.path.join(tmp, f"{label.replace(' ', '_')}.pt")
+    torch.save([b.to("cpu") for b in batches], batch_file)
+    t0 = time.perf_counter()
+    recs = launch(mesh_rank, *layout, devices=devices, backend=backend,
+                  timeout_s=MESH_TIMEOUT_S,
+                  args=(cfg, ckpt, batch_file, n_steps, grads_of))
+    wall = time.perf_counter() - t0
+    os.remove(batch_file)
+    for r in recs:
+        check(r["launches"]["sorted_nms"] == n_steps and
+              r["shapes"]["sorted_nms"] == {K1_TRAIN_SHAPE: n_steps},
+              f"{label} rank {r['rank']}: K1 once a step at "
+              f"{K1_TRAIN_SHAPE}: {r['launches']} {r['shapes']}")
+        check(r["plain_calls"] == 0 and r["launches"]["fused_conv3d"] == 0,
+              f"{label} rank {r['rank']}: the plain NMS or K2 ran")
+        check(r["k1_exact"], f"{label} rank {r['rank']}: K1 against its "
+              "plain version on the first step's NMS inputs")
+        check(r["digests"] == recs[0]["digests"],
+              f"{label} rank {r['rank']}: parameters differ from rank 0's")
+        check(r["losses"] == recs[0]["losses"],
+              f"{label} rank {r['rank']}: metrics differ from rank 0's")
+        for parts in r["losses"]:
+            check(all(np.isfinite(v) for v in parts.values()),
+                  f"{label}: finite losses")
+        med = float(np.median(r["s_per_step"][1:])) if n_steps > 1 \
+            else r["s_per_step"][0]
+        ar = r["allreduce_ms"]
+        print(f"{label} rank {r['rank']} (data {r['data_index']}, space "
+              f"{r['space_index']}, {r['backend']} on {r['device']}): "
+              f"median {med:.4f} s/step after the first, first "
+              f"{r['s_per_step'][0]:.4f} s; gradient all-reduce "
+              f"{float(np.median(ar)):.3f} ms a step (median; each "
+              f"{[round(x, 3) for x in ar]}); max_memory_allocated "
+              f"{r['peak_bytes']} B; K1 {r['launches']['sorted_nms']} "
+              f"launches, kept {r['kept']} on the first step", flush=True)
+    print(f"{label}: {len(recs)} rank(s), parameters equal on every rank "
+          f"after each of {n_steps} steps; launch wall {wall:.1f} s "
+          f"(process start, CUDA set-up, checkpoint load included); "
+          f"losses {[p['total_loss'] for p in recs[0]['losses']]}",
+          flush=True)
+    launches = {name: sum(r["launches"][name] for r in recs)
+                for name in ("sorted_nms", "fused_conv3d")}
+    return launches, recs
+
+
+def plain_steps(label, cfg, ckpt, batch, n_steps, dev):
+    """``n_steps`` of make_train_step in this process from ``ckpt`` on
+    ``batch``, the draws re-seeded TRAIN_SEED every step, as mesh_rank
+    takes them: each step's seconds, metrics and parameter digest."""
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    params, _ = weights.load_npz(os.path.join(ROOT, ckpt), cfg)
+    init, step = tstep.make_train_step(cfg, config_anchors(cfg))
+    state = init(weights.to_device(params, dev))
+    secs, losses, digests = [], [], []
+    for _ in range(n_steps):
+        draws = tstep.draw_train(
+            cfg, torch.Generator().manual_seed(TRAIN_SEED), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, draws)
+        parts = {k: float(v) for k, v in metrics.items()}
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(parts)
+        digests.append(_digest(state.params)[0])
+    print(f"{label} plain step in this process: {secs} s", flush=True)
+    return secs, losses, digests
+
+
+def mean_gradient_update(cfg, ckpt, batches, dev):
+    """One process's update on the mean gradient of ``batches`` (item r
+    with mesh_rank's draws of row r) from ``ckpt`` with a fresh
+    optimizer: (mean loss parts with the total, leaves on the host, the
+    mean gradients on the host)."""
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    params, _ = weights.load_npz(os.path.join(ROOT, ckpt), cfg)
+    init, _ = tstep.make_train_step(cfg, config_anchors(cfg))
+    state = init(weights.to_device(params, dev))
+    anchors = torch.from_numpy(config_anchors(cfg)).to(dev)
+    runs = []
+    for r, batch in enumerate(batches):
+        draws = tstep.draw_train(
+            cfg, torch.Generator().manual_seed(TRAIN_SEED + r), dev)
+        runs.append(tstep.loss_and_grads(state.params, batch, anchors, cfg,
+                                         draws))
+    n = len(runs)
+    total = sum(t for t, _, _ in runs) / n
+    parts = {k: sum(p[k] for _, p, _ in runs) / n for k in runs[0][1]}
+    grads = {k: sum(g[k] for _, _, g in runs) / n for k in runs[0][2]}
+    host_grads = {k: g.to("cpu", copy=True) for k, g in grads.items()}
+    state, metrics = tstep.apply_update(cfg, state, grads, total, parts)
+    return ({k: float(v) for k, v in metrics.items()},
+            _digest(state.params)[1], host_grads)
+
+
+def check_mean_gradient(label, recs, want):
+    """The mesh's first step against mean_gradient_update's: the metrics
+    to MESH_LOSS_RTOL, the gradients the ranks summed and every updated
+    leaf within MESH_LEAF_REL of their largest magnitude (the global-norm
+    clip would hide a gradient scaled by the mesh's size from the
+    parameters).  Returns the worst leaf's error over its magnitude."""
+    wparts, wparams, wgrads = want
+    gworst, gleaf = worst_rel(recs[0]["grads"], wgrads)
+    check(gworst <= MESH_LEAF_REL, f"{label}: the summed gradient {gleaf} "
+          f"differs by {gworst:.3g} of its largest magnitude from the "
+          "mean gradient")
+    got = recs[0]["losses"][0]
+    for k, v in wparts.items():
+        check(abs(got[k] - v) <= MESH_LOSS_RTOL * abs(v),
+              f"{label}: first step {k} {got[k]} against the mean-gradient "
+              f"step's {v}")
+    worst = 0.0
+    for p, v in wparams.items():
+        scale = float(v.abs().max())
+        err = float((recs[0]["first_params"][p] - v).abs().max())
+        check(err <= MESH_LEAF_REL * scale, f"{label}: updated {p} differs "
+              f"by {err} from the mean-gradient step (largest {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"{label}: the first update equals one process's step on the "
+          f"mean gradient of the {len(recs)} items: losses {got} vs {wparts}; "
+          f"the summed gradients within {gworst:.3g} and every updated leaf "
+          f"within {worst:.3g} of their largest magnitude (tolerance "
+          f"{MESH_LEAF_REL:g})", flush=True)
+    return worst
+
+
+def cli_mesh_refusal(tmp):
+    """The heart CLI's ``train --mesh N`` with N one more than the cards
+    visible stops with exit code 2, naming the count."""
+    import io
+
+    import torch
+
+    from cfun_tpu_torch.cli import heart_main
+
+    n = torch.cuda.device_count() + 1
+    err, code = io.StringIO(), None
+    with contextlib.redirect_stderr(err):
+        try:
+            heart_main.main(["train", "--weights", "none", "--stage",
+                             "beginning", "--data", tmp, "--mesh", str(n)])
+        except SystemExit as e:
+            code = e.code
+    visible = f"only {n - 1} CUDA device(s) are visible"
+    check(code == 2 and visible in err.getvalue(),
+          f"train --mesh {n}: exit {code}, {err.getvalue()!r}")
+    print(f"cli: heart_main train --mesh {n} on {n - 1} card(s) stops with "
+          f"exit code 2: {err.getvalue().strip().splitlines()[-1]}",
+          flush=True)
+
+
+def unet_grads_float64(cfg, params, crops, tgt, draws):
+    """The mask and edge losses' gradients with respect to the U-Net's
+    leaves with every operation in float64 (the instance-norm statistics
+    and both losses too), on the crops, targets and dropout masks a step
+    used: the reference both float32 evaluations are held to.  Each ROI's
+    edge term is checkpointed, as in the step."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    from cfun_tpu_torch import nn as pnn
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.models.heads import apply_mask_head
+    from cfun_tpu_torch.train.losses import _SOBEL
+
+    def inorm64(x, eps=1e-5):
+        dims = tuple(range(2, x.dim()))
+        diff = x - x.mean(dim=dims, keepdim=True)
+        return diff * torch.rsqrt(torch.mean(diff * diff, dim=dims,
+                                             keepdim=True) + eps)
+
+    sobel = torch.from_numpy(_SOBEL).to(crops.device, torch.float64)
+
+    def roi_se(t, q):
+        g_true = F.conv3d(t[1:, None], sobel)
+        g_pred = F.conv3d(q[1:, None], sobel)
+        m_true = torch.sqrt(torch.sum(g_true ** 2, dim=1) + 1e-12)
+        m_pred = torch.sqrt(torch.sum(g_pred ** 2, dim=1) + 1e-12)
+        return torch.sum(torch.mean((m_pred - m_true) ** 2, dim=(1, 2, 3)))
+
+    unet = {k: v.detach().double().requires_grad_(True)
+            for k, v in weights._leaves(params["mask"]["unet"]).items()}
+    saved, pnn.instance_norm = pnn.instance_norm, inorm64
+    try:
+        logits = apply_mask_head(
+            {"unet": weights._unflatten(unet)}, crops.double(),
+            stage=cfg.stage, dropout_rate=cfg.unet_dropout_rate,
+            dropout_masks=draws.dropout_masks, dtype=torch.float64,
+            head_impl="explicit", up_impl="explicit")
+    finally:
+        pnn.instance_norm = saved
+    t, pos = tgt.masks.double(), tgt.pos_valid.double()
+    ce = torch.logsumexp(logits, dim=1) - torch.sum(logits * t, dim=1)
+    valid = pos[:, None, None, None].expand(ce.shape)
+    mask_l = torch.sum(ce * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    probs = torch.softmax(logits, dim=1)
+    se = torch.stack([checkpoint(roi_se, t[i], probs[i], use_reentrant=False)
+                      for i in range(t.shape[0])])
+    edge_l = torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
+    w = cfg.loss_weight_dict
+    loss = w["mrcnn_mask_loss"] * mask_l + w["mrcnn_mask_edge_loss"] * edge_l
+    grads = torch.autograd.grad(loss, list(unet.values()), allow_unused=True)
+    return {f"mask/unet/{p}": g.float().cpu() for p, g in zip(unet, grads)
+            if g is not None}
+
+
+def worst_rel(got, want):
+    """(the largest over the leaves of max |got - want| over the leaf's
+    largest magnitude in ``want``, that leaf)."""
+    worst, leaf = 0.0, None
+    for p, w in want.items():
+        scale = float(w.abs().max())
+        if scale:
+            err = float((got[p] - w).abs().max()) / scale
+            if err > worst:
+                worst, leaf = err, p
+    return worst, leaf
+
+
+def shard_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
+                   backend="gloo"):
+    """A float32 ``cfg`` with shard_unet_spatial (TF32 off): one dense
+    step's losses and U-Net gradients in this process, and the float64
+    evaluation of those gradients on its crops (:func:`unet_grads_float64`),
+    then MESH_STEPS[label] steps of a (1, 2) mesh (two ``backend`` ranks on
+    ``devices``, by default two gloo ranks on ``dev``): the first step's mask and edge losses to SHARD_LOSS_RTOL of
+    the dense step's, and its all-reduced U-Net gradients as close to the
+    float64 ones as the dense step's (within SHARD_F64_FACTOR times the
+    dense step's largest gap, or SHARD_GRAD_FLOOR, of each leaf's largest
+    magnitude); the peak memory by rank beside the dense step's.
+    Returns (launches, record)."""
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+
+    cuda = dev.type == "cuda"
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = {}
+    orig_roi, orig_targets = tstep.roi_align, tstep.detection_targets
+
+    def roi(*args, **kw):
+        seen["crops"] = orig_roi(*args, **kw)
+        return seen["crops"]
+
+    def targets(*args, **kw):
+        seen["targets"] = orig_targets(*args, **kw)
+        return seen["targets"]
+
+    try:
+        params, _ = weights.load_npz(os.path.join(ROOT, ckpt), cfg)
+        init, _ = tstep.make_train_step(cfg, config_anchors(cfg))
+        state = init(weights.to_device(params, dev))
+        del params
+        draws = tstep.draw_train(
+            cfg, torch.Generator().manual_seed(TRAIN_SEED), dev)
+        _sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else None
+        t0 = time.perf_counter()
+        tstep.roi_align, tstep.detection_targets = roi, targets
+        try:
+            _, parts, grads = tstep.loss_and_grads(
+                state.params, batch,
+                torch.from_numpy(config_anchors(cfg)).to(dev), cfg, draws)
+        finally:
+            tstep.roi_align, tstep.detection_targets = (orig_roi,
+                                                        orig_targets)
+        _sync(dev)
+        dense_s = time.perf_counter() - t0
+        dense_peak = torch.cuda.max_memory_allocated() if cuda else None
+        dense_parts = {k: float(v) for k, v in parts.items()}
+        dense_grads = {p: g.to("cpu", copy=True) for p, g in grads.items()
+                       if p.startswith("mask/unet/")}
+        del grads, parts
+        f64 = unet_grads_float64(cfg, state.params, seen["crops"],
+                                 seen["targets"], draws)
+        del state, seen
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    if cuda:
+        torch.cuda.empty_cache()
+    launches, rs = run_mesh(label, cfg, ckpt, [batch], MESH_STEPS[label],
+                            (1, 2), devices or [str(dev)] * 2, backend, tmp,
+                            grads_of="mask/unet/")
+    got = rs[0]["losses"][0]
+    for k in ("mrcnn_mask_loss", "mrcnn_mask_edge_loss"):
+        want = dense_parts[k]
+        check(abs(got[k] - want) <= SHARD_LOSS_RTOL * abs(want) and want > 0,
+              f"{label}: {k} {got[k]} against the dense step's {want}")
+    dense_f64, dense_leaf = worst_rel(dense_grads, f64)
+    shard_f64, shard_leaf = worst_rel(rs[0]["grads"], f64)
+    worst, worst_leaf = worst_rel(rs[0]["grads"], dense_grads)
+    tol = max(SHARD_F64_FACTOR * dense_f64, SHARD_GRAD_FLOOR)
+    check(shard_f64 <= tol, f"{label}: the split U-Net's gradient "
+          f"{shard_leaf} is {shard_f64:.3g} of its largest magnitude from "
+          f"the float64 one; the dense step's is {dense_f64:.3g} "
+          f"({dense_leaf}; tolerance {tol:.3g})")
+    print(f"{label} (float32, TF32 off): mask loss "
+          f"{got['mrcnn_mask_loss']} / edge loss "
+          f"{got['mrcnn_mask_edge_loss']} against the dense step's "
+          f"{dense_parts['mrcnn_mask_loss']} / "
+          f"{dense_parts['mrcnn_mask_edge_loss']}; U-Net gradients against "
+          f"the float64 evaluation: split {shard_f64:.3g} ({shard_leaf}), "
+          f"dense {dense_f64:.3g} ({dense_leaf}) of a leaf's largest "
+          f"magnitude (tolerance {tol:.3g}); split against dense "
+          f"{worst:.3g} ({worst_leaf}); peak memory by rank "
+          f"{[r['peak_bytes'] for r in rs]} B against the dense step's "
+          f"{dense_peak} B ({base} B allocated before it; the dense step "
+          f"{dense_s:.3f} s)", flush=True)
+    return launches, dict(_slim(rs), dense_losses=dense_parts,
+                          dense_peak_bytes=dense_peak, dense_s=dense_s,
+                          split_vs_dense_unet_grad_rel=worst,
+                          split_vs_float64=shard_f64,
+                          dense_vs_float64=dense_f64)
+
+
+def mesh_heart(tmp, dev):
+    """Phase mesh_heart: (1, 1) under NCCL against the plain step, bit for
+    bit; (2, 1) on two gloo ranks on one card against the mean-gradient
+    step; (1, 2) 'finetune' with shard_unet_spatial against the dense
+    step; the CLI's refusal.  Returns (launches by path, records)."""
+    import torch
+
+    from cfun_tpu_torch import config as port_config
+
+    ckpt, ckpt_ft = CHECKPOINTS["heart"]
+    launches, recs = {}, {}
+    cfg = port_config.heart_config("beginning")
+    batches = [heart_train_batch(cfg, dev, i) for i in (0, 1)]
+
+    # (1, 1): the distributed path under NCCL, world size 1
+    n = MESH_STEPS["heart 1x1"]
+    secs, losses, digests = plain_steps("heart 1x1", cfg, ckpt, batches[0],
+                                        n, dev)
+    launches["mesh_heart_1x1"], rs = run_mesh(
+        "heart 1x1", cfg, ckpt, batches[:1], n, (1, 1), "cuda", "nccl", tmp)
+    check(rs[0]["backend"] == "nccl", "heart 1x1 under NCCL")
+    check(rs[0]["losses"] == losses and rs[0]["digests"] == digests,
+          "heart 1x1: losses and parameters bit-equal to the plain step's "
+          f"after every step: {[p['total_loss'] for p in losses]}")
+    print(f"heart 1x1: bit-equal to the plain step on every one of {n} "
+          f"steps; s/step {rs[0]['s_per_step']} against the plain step's "
+          f"{secs}", flush=True)
+    recs["heart 1x1"] = dict(_slim(rs), plain_s_per_step=secs)
+
+    # (2, 1): two gloo ranks on the one card
+    n = MESH_STEPS["heart 2x1"]
+    launches["mesh_heart_2x1"], rs = run_mesh(
+        "heart 2x1", cfg, ckpt, batches, n, (2, 1), ["cuda:0", "cuda:0"],
+        "gloo", tmp, grads_of="")
+    worst = check_mean_gradient("heart 2x1", rs, mean_gradient_update(
+        cfg, ckpt, batches, dev))
+    recs["heart 2x1"] = dict(_slim(rs), worst_leaf_rel=worst)
+    del batches
+    torch.cuda.empty_cache()
+
+    # (1, 2) 'finetune': the U-Net and its losses split along D; float32
+    fcfg = port_config.heart_config("finetune", compute_dtype="float32",
+                                    shard_unet_spatial=True)
+    launches["mesh_heart_1x2_finetune"], recs["heart 1x2 finetune"] = \
+        shard_vs_dense("heart 1x2 finetune", fcfg, ckpt_ft,
+                       heart_train_batch(fcfg, dev), dev, tmp)
+    cli_mesh_refusal(tmp)
+    return launches, recs
+
+
+def mesh_multicard(tmp, dev):
+    """Phase multicard (only with the argument 'multicard', on a machine
+    with four cards): the mesh under NCCL with one card a rank, heart at
+    full width: 'beginning' (4, 1) from heart_synth.npz, 4 steps on
+    held-out volumes 0-3, against one process's step on the mean gradient
+    of the four (mesh_heart's (2, 1) checks); 'finetune' float32 (1, 2)
+    across two cards from heart_synth_ft.npz against the dense step and
+    the float64 evaluation (mesh_heart's (1, 2) checks).  Returns
+    (launches by path, records)."""
+    import torch
+
+    from cfun_tpu_torch import config as port_config
+
+    check(torch.cuda.device_count() >= 4,
+          f"multicard needs 4 cards; {torch.cuda.device_count()} visible")
+    ckpt, ckpt_ft = CHECKPOINTS["heart"]
+    launches, recs = {}, {}
+    cfg = port_config.heart_config("beginning")
+    batches = [heart_train_batch(cfg, dev, i) for i in range(4)]
+    n = MESH_STEPS["heart 4x1 nccl"]
+    launches["mesh_heart_4x1_nccl"], rs = run_mesh(
+        "heart 4x1 nccl", cfg, ckpt, batches, n, (4, 1), "cuda", "nccl",
+        tmp, grads_of="")
+    worst = check_mean_gradient("heart 4x1 nccl", rs, mean_gradient_update(
+        cfg, ckpt, batches, dev))
+    recs["heart 4x1 nccl"] = dict(_slim(rs), worst_leaf_rel=worst)
+    del batches
+    torch.cuda.empty_cache()
+    fcfg = port_config.heart_config("finetune", compute_dtype="float32",
+                                    shard_unet_spatial=True)
+    launches["mesh_heart_1x2_finetune_nccl"], \
+        recs["heart 1x2 finetune nccl"] = shard_vs_dense(
+            "heart 1x2 finetune nccl", fcfg, ckpt_ft,
+            heart_train_batch(fcfg, dev), dev, tmp, devices="cuda",
+            backend="nccl")
+    return launches, recs
+
+
+def mesh_lits(tmp, dev, held):
+    """Phase mesh_lits: (2, 1) 'beginning' on two gloo ranks on one card
+    from lits_synth.npz, on held-out volumes 0 and 1, against the
+    mean-gradient step."""
+    from cfun_tpu_torch import config as port_config
+
+    cfg = port_config.lits_config("beginning")
+    batches = [lits_train_batch(cfg, held[i][0], held[i][1], dev)
+               for i in (0, 1)]
+    ckpt = CHECKPOINTS["lits"][0]
+    launches, rs = run_mesh("lits 2x1", cfg, ckpt, batches,
+                            MESH_STEPS["lits 2x1"], (2, 1),
+                            ["cuda:0", "cuda:0"], "gloo", tmp, grads_of="")
+    worst = check_mean_gradient("lits 2x1", rs, mean_gradient_update(
+        cfg, ckpt, batches, dev))
+    return {"mesh_lits_2x1": launches}, {
+        "lits 2x1": dict(_slim(rs), worst_leaf_rel=worst)}
+
+
+def _slim(recs):
+    """The ranks' records without their parameters, gradients and launch
+    shapes (checked in run_mesh)."""
+    return {"ranks": [{k: v for k, v in r.items()
+                       if k not in ("first_params", "grads", "digests",
+                                    "shapes")}
+                      for r in recs]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2568,19 +3217,24 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     schedule = bool(args) and args[0] == "schedule"
+    multicard = args == ["multicard"]
     if (len(args) > (2 if schedule else 1)
-            or (args and not schedule and args[0] not in CHECKPOINTS)):
+            or (args and not (schedule or multicard)
+                and args[0] not in CHECKPOINTS)):
         print(f"usage: chip_smoke.py [{' | '.join(CHECKPOINTS)} | "
-              f"schedule [START.npz]]", file=sys.stderr, flush=True)
+              f"schedule [START.npz] | multicard]", file=sys.stderr,
+              flush=True)
         return 2
-    families = () if schedule else tuple(args) if args else \
+    families = () if schedule or multicard else tuple(args) if args else \
         tuple(CHECKPOINTS)
     heart, lits = "heart" in families, "lits" in families
-    missing = [p for f in families for p in CHECKPOINTS[f]
-               if not os.path.isfile(os.path.join(ROOT, p))]
+    need = CHECKPOINTS["heart"] if multicard else [
+        p for f in families for p in CHECKPOINTS[f]]
+    missing = [p for p in need if not os.path.isfile(os.path.join(ROOT, p))]
     if missing:
         print(f"chip_smoke: missing checkpoint(s) {missing} for "
-              f"{'/'.join(families)}", file=sys.stderr, flush=True)
+              f"{'/'.join(families) or args[0]}", file=sys.stderr,
+              flush=True)
         return 1
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -2665,6 +3319,22 @@ def main() -> int:
                       f"{rec['kernel_ms']:.4f} ms (profiler, kernel alone)",
                       flush=True)
                 k1_lits_cases.append(rec)
+
+    if multicard:
+        with phase("multicard"):
+            tmp = tempfile.mkdtemp(prefix="cfun_multicard_")
+            try:
+                launches, rec = mesh_multicard(tmp, dev)
+            finally:
+                shutil.rmtree(tmp)
+        print(json.dumps({"multicard": rec, "launches_by_path": launches}),
+              flush=True)
+        print(card, flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     if schedule:
         with phase("schedule"):
@@ -2858,6 +3528,16 @@ def main() -> int:
             training.update({f"loop {k}": v for k, v in loop_recs.items()})
             torch.cuda.empty_cache()
 
+        with phase("mesh_heart"):
+            tmp = tempfile.mkdtemp(prefix="cfun_mesh_heart_")
+            try:
+                mesh_launches, mesh_recs = mesh_heart(tmp, dev)
+            finally:
+                shutil.rmtree(tmp)
+            launches_by_path.update(mesh_launches)
+            training.update({f"mesh {k}": v for k, v in mesh_recs.items()})
+            torch.cuda.empty_cache()
+
     if lits:
         with phase("serve_lits"):
             lcfg = port_config.lits_inference_config("finetune")
@@ -3010,6 +3690,16 @@ def main() -> int:
                         tmp, counters, k1, dev)
             finally:
                 shutil.rmtree(tmp)
+            torch.cuda.empty_cache()
+
+        with phase("mesh_lits"):
+            tmp = tempfile.mkdtemp(prefix="cfun_mesh_lits_")
+            try:
+                mesh_launches, mesh_recs = mesh_lits(tmp, dev, held)
+            finally:
+                shutil.rmtree(tmp)
+            launches_by_path.update(mesh_launches)
+            training.update({f"mesh {k}": v for k, v in mesh_recs.items()})
             torch.cuda.empty_cache()
 
     with phase("stream"):

@@ -11,10 +11,11 @@ Dice (and LiTS' box IoUs) to rtol 1e-6, the same file names, and the
 exported label volumes agreeing on >= 99.9% of voxels.  Then ``main``:
 ``--exact`` reaches the config; ``train --device cpu`` of both CLIs on
 fabricated data (the config shrunk to the tiny one) writes its checkpoint
-and metrics, and stops on ``--mesh`` over several devices and on
-``--device-cache`` without ``--aug-device``; without ``--device`` on a
-machine with no card every command stops before it loads anything.  And
-``--trace``'s profiler context.
+and metrics, alone and with ``--mesh 2`` (two gloo ranks on the CPU);
+``--mesh`` over more cards than are visible stops (exit code 2) naming
+their count, and ``--device-cache`` without ``--aug-device`` stops;
+without ``--device`` on a machine with no card every command stops
+before it loads anything.  And ``--trace``'s profiler context.
 """
 
 import glob
@@ -311,47 +312,82 @@ def _train_argv(root, logs, *extra):
             "--device", "cpu", *extra]
 
 
-@pytest.mark.parametrize("family", ["heart", "lits"])
-def test_train_writes_checkpoint_and_metrics(monkeypatch, tmp_path,
-                                             train_roots, family):
-    """``train --device cpu`` runs the loop on the fabricated data (the
-    family's config shrunk) and writes ``model.npz`` (parameters, the
-    optimizer's leaves, epoch 1 after 2 steps) and ``train_metrics.jsonl``
-    (the epoch's loss and its validation loss)."""
+def _check_train_outputs(ckpt, logs, family, ranks):
+    """``model.npz`` (parameters, the optimizer's leaves, epoch 1 after 2
+    steps) and one ``train_metrics.jsonl`` a rank (the epoch's loss and
+    its validation loss)."""
     import json
 
-    mod = pheart if family == "heart" else plits
-    name = "heart_config" if family == "heart" else "lits_config"
-    monkeypatch.setattr(pconfig, name, lambda stage, **kw: _train_cfg(
-        pconfig, stage, family))
-    logs = str(tmp_path / "logs")
-    ckpt = mod.main(_train_argv(train_roots[family], logs))
     assert ckpt.endswith("model.npz") and os.path.isfile(ckpt)
     with np.load(ckpt) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         assert any(k.startswith("opt/") for k in data.files)
         assert any(k.startswith("params/") for k in data.files)
     assert (meta["epoch"], meta["step"], meta["name"]) == (1, 2, family)
+    assert len(glob.glob(os.path.join(logs, "**", "model.npz"),
+                         recursive=True)) == 1
     files = glob.glob(os.path.join(logs, "**", "train_metrics.jsonl"),
                       recursive=True)
-    assert len(files) == 1
-    with open(files[0]) as f:
-        records = [json.loads(line) for line in f]
-    assert [r["epoch"] for r in records] == [1, 1]
-    assert np.isfinite(records[0]["loss"]) and records[0]["steps"] == 2
-    assert np.isfinite(records[1]["val_loss"])
+    assert len(files) == ranks
+    for name in files:
+        with open(name) as f:
+            records = [json.loads(line) for line in f]
+        assert [r["epoch"] for r in records] == [1, 1]
+        assert np.isfinite(records[0]["loss"]) and records[0]["steps"] == 2
+        assert np.isfinite(records[1]["val_loss"])
 
 
 @pytest.mark.parametrize("family", ["heart", "lits"])
-def test_train_multi_device_mesh_stops(capsys, tmp_path, train_roots,
-                                       family):
+def test_train_writes_checkpoint_and_metrics(monkeypatch, tmp_path,
+                                             train_roots, family):
+    """``train --device cpu`` runs the loop on the fabricated data (the
+    family's config shrunk) and writes its checkpoint and metrics."""
     mod = pheart if family == "heart" else plits
+    name = "heart_config" if family == "heart" else "lits_config"
+    monkeypatch.setattr(pconfig, name, lambda stage, **kw: _train_cfg(
+        pconfig, stage, family))
+    logs = str(tmp_path / "logs")
+    ckpt = mod.main(_train_argv(train_roots[family], logs))
+    _check_train_outputs(ckpt, logs, family, 1)
+
+
+@pytest.mark.parametrize("family", ["heart", "lits"])
+def test_train_mesh_on_cpu_ranks(monkeypatch, tmp_path, train_roots,
+                                 family):
+    """``train --device cpu --mesh 2``: two gloo ranks on the CPU, each
+    volume of a step on its own rank; rank 0 writes the checkpoint, each
+    rank its metrics (``-rank{i}``)."""
+    mod = pheart if family == "heart" else plits
+    name = "heart_config" if family == "heart" else "lits_config"
+    monkeypatch.setattr(pconfig, name, lambda stage, **kw: _train_cfg(
+        pconfig, stage, family))
+    logs = str(tmp_path / "logs")
+    ckpt = mod.main(_train_argv(train_roots[family], logs, "--mesh", "2"))
+    _check_train_outputs(ckpt, logs, family, 2)
+    assert sorted(os.path.basename(os.path.dirname(f))[-6:] for f in
+                  glob.glob(os.path.join(logs, "**", "train_metrics.jsonl"),
+                            recursive=True)) == ["-rank0", "-rank1"]
+
+
+@pytest.mark.parametrize("family", ["heart", "lits"])
+def test_train_multi_device_mesh_stops(monkeypatch, capsys, tmp_path,
+                                       train_roots, family):
+    """``--device cuda --mesh 2`` with one card visible stops with exit
+    code 2 and names the count: no rank starts, nothing carries on with
+    fewer cards or on the CPU."""
+    import torch
+
+    mod = pheart if family == "heart" else plits
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(weights, "init_params",
+                        lambda *a, **k: calls.append(a))
     with pytest.raises(SystemExit) as exc:
-        mod.main(_train_argv(train_roots[family], str(tmp_path), "--mesh",
-                             "2"))
-    assert exc.value.code == 2
-    assert "multi-device training is not yet ported" in \
-        capsys.readouterr().err
+        mod.main(_train_argv(train_roots[family], str(tmp_path))[:-2]
+                 + ["--device", "cuda", "--mesh", "2"])
+    assert exc.value.code == 2 and calls == []
+    assert "only 1 CUDA device(s) are visible" in capsys.readouterr().err
 
 
 def test_train_device_cache_needs_aug_device(tmp_path, train_roots):
@@ -447,5 +483,6 @@ def test_import_scan_covers_the_slice():
         "utils.checkpoint", "utils.metrics", "utils.profiling",
         "utils.torch_convert", "utils.logging", "data.nifti",
         "data.datasets", "data.preprocess_lits", "data.feeder",
-        "ops.augment", "train.loop")}
+        "ops.augment", "train.loop", "parallel", "parallel.mesh",
+        "parallel.halo", "parallel.launch")}
     assert slice_modules <= found, sorted(slice_modules - found)

@@ -358,3 +358,115 @@ def test_train_step_card_matches_cpu(cuda):
     for p, v in cparams.items():
         scale = float(v.abs().max())
         assert float((gparams[p] - v).abs().max()) <= 1e-5 * scale, p
+
+
+def test_two_gloo_ranks_on_one_card_match_the_card_step(cuda):
+    """A (2, 1) mesh of two gloo ranks on ``cuda:0`` (the rehearsal of two
+    cards on one), tiny config, float32 with TF32 off: K1 once a step on
+    each rank, the parameters bit-equal on both, and the step equal to one
+    process's step on the card over the mean of the two volumes' losses
+    (``batched_train_forward``): losses rtol 1e-4, every leaf within 1e-5
+    of its largest magnitude (``train_tiny``'s)."""
+    import torch_port_ranks as R
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.parallel.launch import launch
+    from cfun_tpu_torch.parallel.mesh import stack_batches
+    from cfun_tpu_torch.train import step as tstep
+
+    cfg = pconfig.tiny_config()
+    params = weights.params_to_numpy(weights.init_params(cfg, seed=0))
+    batches = [R.synthetic_batch(cfg, s) for s in (0, 1)]
+    draws = [tstep.draw_train(cfg, torch.Generator().manual_seed(s), "cpu")
+             for s in (5, 6)]
+    np_draws = [((d.targets[0].numpy(), d.targets[1].numpy()), None)
+                for d in draws]
+    runs = [r["dp"] for r in launch(
+        R.step_suite, 2, 1, devices=["cuda:0", "cuda:0"], backend="gloo",
+        args=({"dp": (cfg, params, [batches], [np_draws], None)},))]
+    assert [r["k1_launches"] for r in runs] == [1, 1]
+    for p, v in runs[0]["steps"][0][1].items():
+        np.testing.assert_array_equal(runs[1]["steps"][0][1][p], v, p)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        init, _ = tstep.make_train_step(cfg, config_anchors(cfg))
+        state = init(weights.to_device(weights.params_from_numpy(params, cfg),
+                                       cuda))
+        flat = weights._leaves(state.params)
+        paths = [p for p, v in flat.items() if v.requires_grad]
+        total, parts = tstep.batched_train_forward(
+            state.params, stack_batches([R.port_batch(b).to(cuda)
+                                         for b in batches]),
+            torch.from_numpy(config_anchors(cfg)).to(cuda), cfg,
+            [tstep.TrainDraws(tstep.TargetDraws(
+                *(u.to(cuda) for u in d.targets)), None) for d in draws])
+        grads = torch.autograd.grad(total, [flat[p] for p in paths],
+                                    allow_unused=True)
+        grads = {p: torch.zeros_like(flat[p]) if g is None else g
+                 for p, g in zip(paths, grads)}
+        state, metrics = tstep.apply_update(
+            cfg, state, grads, total.detach(),
+            {k: v.detach() for k, v in parts.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    got_metrics, got_params = runs[0]["steps"][0]
+    for k, v in metrics.items():
+        np.testing.assert_allclose(got_metrics[k], float(v), rtol=1e-4,
+                                   err_msg=k)
+    for p, v in weights._leaves(state.params).items():
+        want = v.detach().cpu().numpy()
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got_params[p] - want).max()) <= 1e-5 * scale, p
+
+
+def test_halo_primitives_on_the_card(cuda):
+    """The halo exchange, the halo convs and the sharded instance norm on
+    CUDA tensors of two gloo ranks on ``cuda:0`` (all_gather and
+    all_reduce on the card, TF32 off), against the dense graph on the
+    CPU: each gathered output and input gradient within 1e-5 of its
+    largest magnitude, the weight gradients summed over the ranks."""
+    import torch.nn.functional as F
+
+    import torch_port_ranks as R
+    from cfun_tpu_torch import nn as pnn
+    from cfun_tpu_torch.parallel.launch import launch
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 3, 16, 6, 5)).astype(np.float32)
+    w = {k: (0.3 * rng.normal(size=(4, 3, k, k, k))).astype(np.float32)
+         for k in (3, 5)}
+    convs = [("k3s1", w[3], 1), ("k3s2", w[3], 2), ("k5s1", w[5], 1)]
+
+    def halo_dense(v, h):
+        vp = F.pad(v, [0, 0, 0, 0, h, h])
+        return torch.cat([vp[:, :, 0:8 + 2 * h], vp[:, :, 8:16 + 2 * h]], 2)
+
+    dense = {"halo1": (lambda v: halo_dense(v, 1), None),
+             "halo2": (lambda v: halo_dense(v, 2), None),
+             "inorm": (pnn.instance_norm, None)}
+    for name, wk, s in convs:
+        dense[name] = (lambda v, p, s=s: pnn.conv3d({"w": p}, v, stride=s),
+                       wk)
+    cots = {}
+    for name, (fn, wk) in dense.items():
+        args = [torch.from_numpy(x)] + ([torch.from_numpy(wk)]
+                                        if wk is not None else [])
+        cots[name] = rng.normal(size=fn(*args).shape).astype(np.float32)
+    got = launch(R.primitives, 1, 2, devices=["cuda:0", "cuda:0"],
+                 backend="gloo", args=(x, cots, convs))
+    for name, (fn, wk) in dense.items():
+        leaves = [torch.from_numpy(x).requires_grad_(True)] + (
+            [torch.from_numpy(wk).requires_grad_(True)] if wk is not None
+            else [])
+        y = fn(*leaves)
+        grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(
+            cots[name])), leaves)
+        pairs = [(np.concatenate([g[name][0] for g in got], 2), y),
+                 (np.concatenate([g[name][1] for g in got], 2), grads[0])]
+        if wk is not None:
+            pairs.append((sum(g[name][2] for g in got), grads[1]))
+        for have, want in pairs:
+            want = want.detach().numpy()
+            scale = float(np.abs(want).max())
+            assert float(np.abs(have - want).max()) <= 1e-5 * scale, name

@@ -42,7 +42,9 @@ new = ["cfun_tpu_torch.train", "cfun_tpu_torch.train.losses",
        "cfun_tpu_torch.train.targets", "cfun_tpu_torch.train.step",
        "cfun_tpu_torch.train.loop", "cfun_tpu_torch.data.feeder",
        "cfun_tpu_torch.ops.augment", "cfun_tpu_torch.utils.logging",
-       "cfun_tpu_torch.utils.checkpoint"]
+       "cfun_tpu_torch.utils.checkpoint", "cfun_tpu_torch.parallel",
+       "cfun_tpu_torch.parallel.mesh", "cfun_tpu_torch.parallel.halo",
+       "cfun_tpu_torch.parallel.launch"]
 for name in new:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -54,7 +56,8 @@ print(sorted(set(new) - names), bad)
 
 def test_train_modules_import_alone():
     """The training modules (the step, the loop, the feeder, the device
-    augment, the logs and checkpoints) are found by the walk above and
+    augment, the logs and checkpoints, the mesh, its halo exchanges and
+    the launcher of its ranks) are found by the walk above and
     import neither JAX, optax, ml_dtypes nor the JAX package: the port
     keeps its own ``build_rpn_targets``, ``np_mask_to_extended_bbox``,
     ``rotate_hw`` and train molds."""
@@ -64,6 +67,23 @@ def test_train_modules_import_alone():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] []", proc.stdout
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank that ``parallel/launch.py`` spawns (from this process, which
+    has imported JAX and the JAX package) starts from a fresh interpreter:
+    it imports neither, with the port's mesh and step loaded."""
+    from cfun_tpu_torch.parallel.launch import launch
+    import torch_port_ranks
+
+    ranks = launch(torch_port_ranks.loaded_modules, 2, 1, devices="cpu")
+    assert [rank for rank, _ in ranks] == [0, 1]
+    for rank, modules in ranks:
+        assert {"torch", "cfun_tpu_torch", "torch_port_ranks"} <= set(
+            modules)
+        bad = {"jax", "jaxlib", "ml_dtypes", "optax", "cfun_tpu"} & set(
+            modules)
+        assert not bad, f"rank {rank} imported {sorted(bad)}"
 
 
 def test_port_sources_name_no_jax_import():

@@ -20,7 +20,7 @@ step tests' gradient tolerance summed over the 6 steps.  Then the port alone: a 
 uninterrupted 4-epoch run exactly (CPU torch is bit-repeatable here: the
 same epoch losses, validation losses and checkpoint leaves, compared
 with ``assert_array_equal``), two identical runs log the same validation
-losses, and ``--mesh`` over several devices is refused.
+losses, and a mesh the devices cannot hold is refused.
 """
 
 import glob
@@ -260,9 +260,30 @@ def test_val_loss_same_across_runs(tmp_path, start):
     assert vals[0] and vals[0] == vals[1]
 
 
-def test_multi_device_mesh_is_refused(tmp_path):
+def test_multi_device_mesh_is_refused(monkeypatch, tmp_path):
+    """A mesh the devices cannot hold is refused before any rank starts
+    (the mesh itself runs: tests/test_torch_port_mesh.py): two CUDA ranks
+    with one card visible (the count named), NCCL ranks sharing a card,
+    and the device mold cache on a mesh (the JAX package's message)."""
+    import torch
+
+    from cfun_tpu_torch.parallel import launch
+
     _, pcfg = _cfgs()
     train, val = _datasets()
-    with pytest.raises(ValueError, match="multi-device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(launch.mp, "start_processes", None)
+    with pytest.raises(ValueError, match="only 1 CUDA device"):
         loop.train_model(pcfg, train, val, log_dir=str(tmp_path), epochs=1,
-                         mesh_spec=(2, 1), device="cpu")
+                         mesh_spec=(2, 1), device="cuda")
+    with pytest.raises(ValueError, match="NCCL takes one card a rank"):
+        loop.train_model(pcfg, train, val, log_dir=str(tmp_path), epochs=1,
+                         mesh_spec=(2, 1), device="cuda",
+                         devices=["cuda:0", "cuda:0"])
+    with pytest.raises(ValueError, match="device_mold_cache is a "
+                                         "single-device optimization"):
+        loop.train_model(pcfg.replace(augment_on_device=True,
+                                      device_mold_cache=True), train, val,
+                         log_dir=str(tmp_path), epochs=1, mesh_spec=(2, 1),
+                         device="cpu")
