@@ -62,14 +62,31 @@ class TrunkOut(NamedTuple):
 
 
 def apply_trunk(params: nn.Params, image: torch.Tensor, cfg: Config,
-                remat: bool = False) -> TrunkOut:
+                remat: bool = False, group=None) -> TrunkOut:
     """image: [B, 1, D, H, W] molded volume.  ``remat``: checkpoint each
-    backbone block (``models/p3d.py::apply_p3d``)."""
+    backbone block (``models/p3d.py::apply_p3d``).
+
+    ``group``: a process group whose ranks split the trunk along H, as
+    GSPMD splits it under the JAX package's H sharding of the volume
+    (``cfun_tpu/parallel/mesh.py::batch_sharding``).  ``image`` is the
+    whole volume, the same on every rank; each runs the backbone, the FPN
+    and the RPN on its H shard (``parallel/halo.py::shard_h``, which needs
+    a local H divisible by 16), and the maps are gathered along H, so
+    every rank returns the dense ``TrunkOut``."""
     dt = compute_dtype(cfg)
-    c2, c3 = apply_p3d(params["backbone"], image, dtype=dt, remat=remat)
-    p2, p3 = apply_fpn(params["fpn"], c2, c3, dtype=dt)
-    l2, d2 = apply_rpn(params["rpn"], p2, cfg.anchor_stride, dtype=dt)
-    l3, d3 = apply_rpn(params["rpn"], p3, cfg.anchor_stride, dtype=dt)
+    if group is not None:
+        from cfun_tpu_torch.parallel.halo import gather_along, shard_h
+
+        image = shard_h(image, group)
+    c2, c3 = apply_p3d(params["backbone"], image, dtype=dt, remat=remat,
+                       group=group)
+    p2, p3 = apply_fpn(params["fpn"], c2, c3, dtype=dt, group=group)
+    l2, d2 = apply_rpn(params["rpn"], p2, cfg.anchor_stride, dtype=dt,
+                       group=group)
+    l3, d3 = apply_rpn(params["rpn"], p3, cfg.anchor_stride, dtype=dt,
+                       group=group)
+    if group is not None:
+        p2, p3 = gather_along(p2, group, 3), gather_along(p3, group, 3)
     return TrunkOut(p2, p3, torch.cat([l2, l3], dim=1),
                     torch.cat([d2, d3], dim=1))
 

@@ -1,14 +1,20 @@
-"""Halo-exchange convolutions for volumes split along D across the ranks of
-a process group (port of ``cfun_tpu/parallel/halo.py``).
+"""Halo-exchange convolutions for volumes split across the ranks of a
+process group (port of ``cfun_tpu/parallel/halo.py``).
 
-Each rank holds a shard ``[N, C, L, H, W]`` of a channel-first volume
-split along D (axis 2).  A 3D convolution needs ``k // 2`` planes of its
-neighbours' data at a shard's edges: :func:`exchange_halo` brings them in
-(zeros at the outer edges, the zero padding a dense conv sees) and
-:func:`halo_conv3d` then runs the conv unpadded along D.  Instance norms
-sum their statistics over the group (:func:`instance_norm_sharded`), so
-the sharded U-Net (:func:`shard_map_unet`, ``models/unet3d.py::
-apply_unet(group=...)``) computes the dense one.
+Each rank holds a shard of a channel-first volume ``[N, C, D, H, W]``
+split along one spatial axis: D (axis 2) for the mask U-Net's crops, H
+(axis 3) for the trunk's molded volume.  A 3D convolution needs ``k // 2``
+planes of its neighbours' data at a shard's edges: :func:`exchange_halo`
+brings them in (zeros at the outer edges, the zero padding a dense conv
+sees) and :func:`halo_conv3d` then runs the conv unpadded along that
+axis.  Instance norms sum their statistics over the group
+(:func:`instance_norm_sharded`), so the sharded U-Net
+(:func:`shard_map_unet`, ``models/unet3d.py::apply_unet(group=...)``)
+computes the dense one.  The trunk split along H (:func:`shard_h`,
+``models/p3d.py::trunk_conv``, ``models/cfun.py::apply_trunk(group=...)``)
+is what GSPMD makes of the JAX package's H sharding of the molded volume
+(``cfun_tpu/parallel/mesh.py::batch_sharding``); its outputs are gathered
+whole (:func:`gather_along`).
 
 Gradients.  The JAX package writes these inside ``jax.shard_map``, where
 ``lax.ppermute`` and ``lax.psum`` carry their own transposes.  Here each
@@ -42,6 +48,9 @@ from cfun_tpu_torch.train.losses import _edge_maps
 # the four stride-2 context levels of the U-Net: a shard's planes must
 # stay even at each (cfun_tpu/parallel/halo.py:94-102)
 UNET_D_MULTIPLE = 16
+# the trunk's four stride-2 steps along H (the stem, the max pool, C2's and
+# C3's first blocks): likewise
+TRUNK_H_MULTIPLE = 16
 
 
 def _size(group) -> int:
@@ -153,23 +162,72 @@ def instance_norm_sharded(x: torch.Tensor, group,
 
 
 def halo_conv3d(params: nn.Params, x: torch.Tensor, group, stride: int = 1,
-                dtype=torch.float32) -> torch.Tensor:
-    """3D conv over a [N, C, L, H, W] shard split along D over ``group``:
-    equal to the shard of ``nn.conv3d(params, whole volume, stride)`` for
-    odd kernels and local D divisible by the stride."""
+                dtype=torch.float32, dim: int = 2) -> torch.Tensor:
+    """3D conv over a [N, C, D, H, W] shard split along ``dim`` (2 = D,
+    3 = H) over ``group``: equal to the shard of ``nn.conv3d(params, whole
+    volume, stride)`` for odd kernels and a local length along ``dim``
+    divisible by the stride.  The other two axes are padded as
+    ``nn.conv3d`` pads them."""
     w = params["w"]
-    kd, kh, kw = w.shape[2:]
-    x = exchange_halo(x.to(dtype), group, (kd - 1) // 2, dim=2)
+    pads = [(k - 1) // 2 for k in w.shape[2:]]
+    x = exchange_halo(x.to(dtype), group, pads[dim - 2], dim=dim)
+    pads[dim - 2] = 0
     b = params.get("b")
     return F.conv3d(x, w.to(dtype), None if b is None else b.to(dtype),
-                    stride=stride, padding=(0, (kh - 1) // 2, (kw - 1) // 2))
+                    stride=stride, padding=tuple(pads))
+
+
+class _GatherAlong(torch.autograd.Function):
+    """[.., L, ..] -> [.., size * L, ..]: every rank's shard in rank order.
+    The backward sums every rank's cotangent (each rank's share of one
+    objective) and keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.length = group, dim, x.shape[dim]
+        return torch.cat(_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.length
+        return g.narrow(ctx.dim, start, ctx.length), None, None
+
+
+def gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The shards ``x`` of every rank of ``group`` concatenated along
+    ``dim`` in rank order (the inverse of :func:`shard_of`): the whole
+    tensor, the same on every rank.  Differentiable: the cotangents of
+    all ranks are summed (an all-reduce, as the collectives here take
+    only ``all_gather`` and ``all_reduce``) and each rank keeps its own
+    slice's."""
+    if _size(group) == 1:
+        return x
+    return _GatherAlong.apply(x, group, dim)
+
+
+def shard_h(image: torch.Tensor, group) -> torch.Tensor:
+    """This rank's H shard of the whole [N, C, D, H, W] ``image`` for the
+    trunk split over ``group``.  Raises ValueError unless the local H is a
+    multiple of TRUNK_H_MULTIPLE, which keeps every stride-2 step of the
+    trunk shard-aligned (an even length at each)."""
+    n, h = _size(group), image.shape[3]
+    if h % n or (h // n) % TRUNK_H_MULTIPLE:
+        raise ValueError(
+            f"the trunk's H split: H={h} over {n} 'space' shards gives "
+            f"local H={h / n:g}; need local H % {TRUNK_H_MULTIPLE} == 0 so "
+            "the stem, the max pool, C2 and C3 (each of stride 2) stay "
+            "shard-aligned")
+    return shard_of(image, group, dim=3)
 
 
 def shard_of(x: torch.Tensor, group, dim: int = 2) -> torch.Tensor:
     """This rank's equal slice of ``x`` along ``dim`` over ``group``."""
     n, rank = _size(group), dist.get_rank(group)
     if x.shape[dim] % n:
-        raise ValueError(f"D={x.shape[dim]} does not split over {n} ranks")
+        raise ValueError(f"axis {dim} of length {x.shape[dim]} does not "
+                         f"split over {n} ranks")
     local = x.shape[dim] // n
     return x.narrow(dim, rank * local, local)
 

@@ -6,18 +6,20 @@ One process per rank (``parallel/launch.py`` starts them).  Rank ``r`` of
 a ``(data, space)`` mesh sits at ``data_index = r // space``, ``space_index
 = r % space``: the ``(data, space)`` reshape of the JAX package's device
 list.  Each mesh row (the ``space`` ranks of one ``data_index``) trains
-one volume; a row's ranks split the mask U-Net and its losses along the
-crops' D (``cfg.shard_unet_spatial``, ``parallel/halo.py``) and run the
-rest of the step replicated, with the same inputs and draws.  Parameters
-and optimizer state are replicated: every rank applies the same update.
+one volume; a row's ranks split the trunk along H and, with
+``cfg.shard_unet_spatial``, the mask U-Net and its losses along the crops'
+D (``parallel/halo.py``), and run the rest of the step replicated, with
+the same inputs and draws.  Parameters and optimizer state are
+replicated: every rank applies the same update.
 
 The JAX package expresses all of this as shardings of one jitted program
 (``batch_sharding``, ``aug_batch_sharding``, GSPMD's halo exchanges along
 H).  Here each rank holds its own row's batch, so those two functions have
 no counterpart; in their place the training loop gives each row its own
 feeder shard (``train/loop.py``), and the step all-reduces the gradients
-itself.  GSPMD also shards the trunk along H for free; here the trunk runs
-replicated on a row's ranks (the same results; more memory per rank).
+itself.  GSPMD shards the trunk along H under ``batch_sharding``; here
+``models/cfun.py::apply_trunk(group=...)`` splits it the same way, with
+halo exchanges along H, and gathers its maps whole before the proposals.
 
 The step's gradient rule (``parallel/halo.py``): every rank
 backpropagates its share of the mean objective over the step's volumes,

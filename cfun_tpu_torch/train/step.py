@@ -22,9 +22,10 @@ masks, ``TrainDraws``) are taken before any compute, from a
 would be drawn again when the backward pass recomputes it.
 
 On a mesh (``parallel/mesh.py``) the forward takes the rank's ``Mesh``:
-with ``cfg.shard_unet_spatial`` and more than one space rank, the mask
-U-Net and its losses are split along the crops' D over the row's ranks
-(``parallel/halo.py``).  ``batched_train_forward`` is the mean over
+with more than one space rank the trunk is split along H over the row's
+ranks (``models/cfun.py::apply_trunk(group=...)``), and with
+``cfg.shard_unet_spatial`` the mask U-Net and its losses along the crops'
+D (``parallel/halo.py``).  ``batched_train_forward`` is the mean over
 several volumes on one device, the dense reference of the mesh step.
 """
 
@@ -319,10 +320,11 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     ``generator`` first (:func:`draw_train`).  ``nms``: the proposal
     layer's NMS (``ops/sorted_nms.py::sorted_nms``, the kernel on CUDA
     tensors).  ``mesh``: this rank's ``parallel.mesh.Mesh``; with
-    ``cfg.shard_unet_spatial`` and ``mesh.space > 1`` the mask U-Net and
-    its losses run split along D over the row's ranks
-    (``parallel/halo.py``), and the results are the row's, the same on
-    each of its ranks."""
+    ``mesh.space > 1`` the trunk runs split along H over the row's ranks
+    (after the device augment of an ``AugTrainBatch``, on the whole
+    volume), and with ``cfg.shard_unet_spatial`` too the mask U-Net and
+    its losses split along D (``parallel/halo.py``); the results are the
+    row's, the same on each of its ranks."""
     train_det, train_mask_branch, edge_on = stage_flags(cfg)
     dt = cfun.compute_dtype(cfg)
     image = batch.image
@@ -336,7 +338,9 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
         # the int8 train wire: dequantize on the device, in the compute
         # dtype
         image = image.to(dt) * (1.0 / cfg.wire_int8_scale)
-    trunk = cfun.apply_trunk(params, image, cfg, remat=cfg.remat_trunk)
+    split = mesh is not None and mesh.space > 1
+    trunk = cfun.apply_trunk(params, image, cfg, remat=cfg.remat_trunk,
+                             group=mesh.space_group if split else None)
     proposals, valid = cfun.propose(
         trunk.rpn_logits[0].detach(), trunk.rpn_deltas[0].detach(), anchors,
         cfg, cfg.post_nms_rois_training, nms=nms)
@@ -368,8 +372,7 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
 
     if train_mask_branch:
         crops = roi_align(image[0], tgt.pos_rois, tuple(cfg.mask_pool_size))
-        shard_spatial = (mesh is not None and cfg.shard_unet_spatial
-                         and mesh.space > 1)
+        shard_spatial = split and cfg.shard_unet_spatial
         if shard_spatial:
             def mask_fn(p, c):
                 return shard_map_unet(

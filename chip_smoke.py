@@ -17,9 +17,10 @@ an error (exit 1).
 
 Phases, each printed as ``phase <name> start`` / ``phase <name> done <s>``
 (shared: env build k1 k2 train_tiny; heart: serve serve_fused serve_ft
-cli_heart train_heart train_loop_heart mesh_heart; LiTS: serve_lits
-serve_lits_fused cli_lits train_lits train_loop_lits mesh_lits; then
-stream k2_served profile small, each on the families that ran):
+cli_heart train_heart roofline train_loop_heart mesh_heart; LiTS:
+serve_lits serve_lits_fused roofline cli_lits train_lits train_loop_lits
+mesh_lits; then stream k2_served profile small, each on the families that
+ran):
 
   env     torch / CUDA versions and the card (nvidia-smi name, power limit)
   build   nvcc-builds the port's CUDA kernels from cfun_tpu_torch/csrc
@@ -95,6 +96,24 @@ stream k2_served profile small, each on the families that ran):
           frozen leaves unchanged, the loss falls); the median s/step,
           max_memory_allocated and K1 at the step's NMS inputs beside its
           bound, with the card's clocks before and after
+  roofline  (in each family's block) cfun_tpu_torch/utils/roofline.py on
+          the served paths: heart dense, fused and finetune after
+          train_heart, LiTS dense and fused after serve_lits_fused.  On
+          each path the trunk (a seeded volume of the molded shape), the
+          mask head (the served crops) and the whole packed request
+          (packed_infer_program on a served volume): its dense form's
+          GFLOP and GB by cost_of (the trunk's and the mask head's equal
+          to their count on 'meta'), one eager call on a side stream,
+          then 8 calls captured in one CUDA graph there (K1's and K2's
+          launches in the capture the eager call's times 8, every
+          replayed output bit-equal to the eager call's), and
+          time_amortized: single / kernel / replay / dispatch ms, TFLOP/s,
+          mfu and hbm_bw_util against the card's peaks; the dispatch
+          floor; bench.py's key names for the heart dense path; the mfu of
+          the isolated heart 'beginning' train step (cost_of of its
+          forward and backward over train_heart's median s/step).  Phase
+          profile prints each request's kernel and replay ms beside its
+          device busy
   train_loop_heart  the training loop (cfun_tpu_torch/train/loop.py) on
           the card, three runs, each with every launch count set to 0
           before and read after (K1 exactly once a step and once a
@@ -131,14 +150,18 @@ stream k2_served profile small, each on the families that ran):
           cuda:0 under gloo (NCCL takes one card a rank), 4 steps, the
           first update equal to one process's step on the mean gradient
           of the two volumes with the same draws (losses rtol 1e-4, each
-          leaf within 1e-5 of its largest magnitude); (1, 2) 'finetune'
-          with shard_unet_spatial from heart_synth_ft.npz in float32
-          (TF32 off), two gloo ranks on cuda:0, 2 steps, the mask and edge
-          losses against one dense step (rtol 1e-4), and the all-reduced
-          U-Net gradients as close to a float64 evaluation of them on the
-          dense step's crops as the dense step's (within twice its largest
-          gap, or 1e-4, of a leaf's largest magnitude), the peak memory by
-          rank beside the dense step's; on every path and rank
+          leaf within 1e-5 of its largest magnitude); (1, 2) 'beginning'
+          from heart_synth.npz and (1, 2) 'finetune' from
+          heart_synth_ft.npz, each with the trunk split along H and, with
+          shard_unet_spatial, the U-Net along D, in float32 (TF32 off),
+          two gloo ranks on cuda:0, 2 steps, the loss parts against one
+          dense step (rtol 1e-4), the all-reduced trunk and head
+          gradients within 1e-4 of each leaf's largest magnitude from
+          the dense step's, and the U-Net's as close to a float64
+          evaluation of them on the dense step's crops as the dense
+          step's (within twice its largest gap, or 1e-4, of a leaf's
+          largest magnitude), the peak memory by rank beside the dense
+          step's; on every path and rank
           K1 exactly once a step at 1000->500 and equal to its plain
           version on the first step's NMS inputs, its plain version and
           K2 never, the parameters the same on every rank after every
@@ -191,7 +214,10 @@ stream k2_served profile small, each on the families that ran):
           (1, 2) across two cards with mesh_heart's (1, 2) checks
   mesh_lits  lits_config('beginning') from weights/lits_synth.npz on a
           (2, 1) mesh of two gloo ranks on cuda:0, 2 steps on held-out
-          volumes 0 and 1 of serve_lits, with mesh_heart's (2, 1) checks
+          volumes 0 and 1 of serve_lits, with mesh_heart's (2, 1) checks;
+          then in float32 on a (1, 2) mesh, the P3D35 trunk split along H
+          and checkpointed block by block, on volume 0, with mesh_heart's
+          (1, 2) checks
   stream  Detector.detect_stream over four full-width heart volumes on the
           dense path: the same results as serial detect, in order, the
           sustained ms a volume beside the serial ms, the launch counts
@@ -245,10 +271,14 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from cfun_tpu_torch.utils.roofline import PEAKS  # noqa: E402
+
 WATCHDOG_S = 900
 H100_F32_OPS_PER_S = 67e12   # H100 SXM data sheet, f32 outside tensor cores
-H100_BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
-H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+# dense bf16 tensor cores and HBM3: the roofline module's one table
+H100_BF16_OPS_PER_S = PEAKS["h100_sxm"]["flops_bf16"]
+H100_BYTES_PER_S = PEAKS["h100_sxm"]["hbm_bw"]
 IOU_OPS_PER_PAIR = 19        # 12 min/max/sub/clamp, 2 mul, 2 add/sub, +eps, div, >
 
 _T0 = time.perf_counter()
@@ -2610,12 +2640,17 @@ def schedule_phase(tmp, counters, k1, dev, start="none"):
 # and the dense gradients, failed on the card at 1.15e-3 on c1_2/w; on the
 # CPU both float32 evaluations sit ~1e-3 from float64 at the tiny
 # finetune config, so the float64 evaluation is the reference.)
-MESH_STEPS = {"heart 1x1": 6, "heart 2x1": 4, "heart 1x2 finetune": 2,
-              "lits 2x1": 2, "heart 4x1 nccl": 4,
+MESH_STEPS = {"heart 1x1": 6, "heart 2x1": 4, "heart 1x2 beginning": 2,
+              "heart 1x2 finetune": 2, "lits 2x1": 2,
+              "lits 1x2 beginning": 2, "heart 4x1 nccl": 4,
               "heart 1x2 finetune nccl": 2}
 MESH_TIMEOUT_S = 300
 MESH_LOSS_RTOL, MESH_LEAF_REL = 1e-4, 1e-5
-SHARD_LOSS_RTOL, SHARD_F64_FACTOR, SHARD_GRAD_FLOOR = 1e-4, 2.0, 1e-4
+# a (1, 2) mesh in float32 against the dense step: the loss parts, and the
+# trunk's and the heads' summed gradients (each over its leaf's largest
+# magnitude); the split U-Net's against float64 (above)
+SPLIT_LOSS_RTOL, SPLIT_LEAF_REL = 1e-4, 1e-4
+SHARD_F64_FACTOR, SHARD_GRAD_FLOOR = 2.0, 1e-4
 
 
 def _sync(dev):
@@ -2918,12 +2953,12 @@ def cli_mesh_refusal(tmp):
           flush=True)
 
 
-def unet_grads_float64(cfg, params, crops, tgt, draws):
-    """The mask and edge losses' gradients with respect to the U-Net's
-    leaves with every operation in float64 (the instance-norm statistics
-    and both losses too), on the crops, targets and dropout masks a step
-    used: the reference both float32 evaluations are held to.  Each ROI's
-    edge term is checkpointed, as in the step."""
+def unet_grads_float64(cfg, params, crops, tgt, draws, edge_on=True):
+    """The mask and (with ``edge_on``) edge losses' gradients with respect
+    to the U-Net's leaves with every operation in float64 (the
+    instance-norm statistics and both losses too), on the crops, targets
+    and dropout masks a step used: the reference both float32 evaluations
+    are held to.  Each ROI's edge term is checkpointed, as in the step."""
     import torch
     import torch.nn.functional as F
     from torch.utils.checkpoint import checkpoint
@@ -2963,12 +2998,15 @@ def unet_grads_float64(cfg, params, crops, tgt, draws):
     ce = torch.logsumexp(logits, dim=1) - torch.sum(logits * t, dim=1)
     valid = pos[:, None, None, None].expand(ce.shape)
     mask_l = torch.sum(ce * valid) / torch.clamp(torch.sum(valid), min=1.0)
-    probs = torch.softmax(logits, dim=1)
-    se = torch.stack([checkpoint(roi_se, t[i], probs[i], use_reentrant=False)
-                      for i in range(t.shape[0])])
-    edge_l = torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
     w = cfg.loss_weight_dict
-    loss = w["mrcnn_mask_loss"] * mask_l + w["mrcnn_mask_edge_loss"] * edge_l
+    loss = w["mrcnn_mask_loss"] * mask_l
+    if edge_on:
+        probs = torch.softmax(logits, dim=1)
+        se = torch.stack([checkpoint(roi_se, t[i], probs[i],
+                                     use_reentrant=False)
+                          for i in range(t.shape[0])])
+        edge_l = torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
+        loss = loss + w["mrcnn_mask_edge_loss"] * edge_l
     grads = torch.autograd.grad(loss, list(unet.values()), allow_unused=True)
     return {f"mask/unet/{p}": g.float().cpu() for p, g in zip(unet, grads)
             if g is not None}
@@ -2987,18 +3025,23 @@ def worst_rel(got, want):
     return worst, leaf
 
 
-def shard_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
+def split_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
                    backend="gloo"):
-    """A float32 ``cfg`` with shard_unet_spatial (TF32 off): one dense
-    step's losses and U-Net gradients in this process, and the float64
-    evaluation of those gradients on its crops (:func:`unet_grads_float64`),
-    then MESH_STEPS[label] steps of a (1, 2) mesh (two ``backend`` ranks on
-    ``devices``, by default two gloo ranks on ``dev``): the first step's mask and edge losses to SHARD_LOSS_RTOL of
-    the dense step's, and its all-reduced U-Net gradients as close to the
+    """A float32 ``cfg`` (TF32 off) on a (1, 2) mesh, whose two space ranks
+    split the trunk along H and, with shard_unet_spatial, the mask U-Net
+    and its losses along D.  First one dense step in this process: its
+    loss parts and gradients, and where the U-Net is split the float64
+    evaluation of its U-Net gradients on its crops
+    (:func:`unet_grads_float64`).  Then MESH_STEPS[label] steps of the mesh
+    (two ``backend`` ranks on ``devices``, by default two gloo ranks on
+    ``dev``; run_mesh's checks): the first step's loss parts to
+    SPLIT_LOSS_RTOL of the dense step's, every other gradient the ranks
+    summed (the trunk's, the heads') within SPLIT_LEAF_REL of its largest
+    magnitude from the dense one, and the split U-Net's as close to the
     float64 ones as the dense step's (within SHARD_F64_FACTOR times the
     dense step's largest gap, or SHARD_GRAD_FLOOR, of each leaf's largest
-    magnitude); the peak memory by rank beside the dense step's.
-    Returns (launches, record)."""
+    magnitude); the peak memory by rank beside the dense step's.  Returns
+    (launches, record)."""
     import torch
 
     from cfun_tpu_torch import weights
@@ -3006,6 +3049,7 @@ def shard_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
     from cfun_tpu_torch.train import step as tstep
 
     cuda = dev.type == "cuda"
+    split_unet = cfg.shard_unet_spatial and tstep.stage_flags(cfg)[1]
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -3045,11 +3089,12 @@ def shard_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
         dense_s = time.perf_counter() - t0
         dense_peak = torch.cuda.max_memory_allocated() if cuda else None
         dense_parts = {k: float(v) for k, v in parts.items()}
-        dense_grads = {p: g.to("cpu", copy=True) for p, g in grads.items()
-                       if p.startswith("mask/unet/")}
+        dense_grads = {p: g.to("cpu", copy=True) for p, g in grads.items()}
         del grads, parts
-        f64 = unet_grads_float64(cfg, state.params, seen["crops"],
-                                 seen["targets"], draws)
+        f64 = (unet_grads_float64(cfg, state.params, seen["crops"],
+                                  seen["targets"], draws,
+                                  edge_on=tstep.stage_flags(cfg)[2])
+               if split_unet else None)
         del state, seen
     finally:
         torch.backends.cudnn.allow_tf32, \
@@ -3058,44 +3103,58 @@ def shard_vs_dense(label, cfg, ckpt, batch, dev, tmp, devices=None,
         torch.cuda.empty_cache()
     launches, rs = run_mesh(label, cfg, ckpt, [batch], MESH_STEPS[label],
                             (1, 2), devices or [str(dev)] * 2, backend, tmp,
-                            grads_of="mask/unet/")
-    got = rs[0]["losses"][0]
-    for k in ("mrcnn_mask_loss", "mrcnn_mask_edge_loss"):
-        want = dense_parts[k]
-        check(abs(got[k] - want) <= SHARD_LOSS_RTOL * abs(want) and want > 0,
+                            grads_of="")
+    got, summed = rs[0]["losses"][0], rs[0]["grads"]
+    for k, want in dense_parts.items():
+        check(abs(got[k] - want) <= SPLIT_LOSS_RTOL * abs(want),
               f"{label}: {k} {got[k]} against the dense step's {want}")
-    dense_f64, dense_leaf = worst_rel(dense_grads, f64)
-    shard_f64, shard_leaf = worst_rel(rs[0]["grads"], f64)
-    worst, worst_leaf = worst_rel(rs[0]["grads"], dense_grads)
-    tol = max(SHARD_F64_FACTOR * dense_f64, SHARD_GRAD_FLOOR)
-    check(shard_f64 <= tol, f"{label}: the split U-Net's gradient "
-          f"{shard_leaf} is {shard_f64:.3g} of its largest magnitude from "
-          f"the float64 one; the dense step's is {dense_f64:.3g} "
-          f"({dense_leaf}; tolerance {tol:.3g})")
-    print(f"{label} (float32, TF32 off): mask loss "
-          f"{got['mrcnn_mask_loss']} / edge loss "
-          f"{got['mrcnn_mask_edge_loss']} against the dense step's "
-          f"{dense_parts['mrcnn_mask_loss']} / "
-          f"{dense_parts['mrcnn_mask_edge_loss']}; U-Net gradients against "
-          f"the float64 evaluation: split {shard_f64:.3g} ({shard_leaf}), "
-          f"dense {dense_f64:.3g} ({dense_leaf}) of a leaf's largest "
-          f"magnitude (tolerance {tol:.3g}); split against dense "
-          f"{worst:.3g} ({worst_leaf}); peak memory by rank "
+    unet = {p for p in dense_grads if p.startswith("mask/unet/")}
+    check(sorted(summed) == sorted(dense_grads),
+          f"{label}: the mesh's gradient leaves are the dense step's")
+    rest, rest_leaf = worst_rel(summed, {p: g for p, g in dense_grads.items()
+                                         if p not in unet})
+    check(rest <= SPLIT_LEAF_REL, f"{label}: the summed gradient "
+          f"{rest_leaf} is {rest:.3g} of its largest magnitude from the "
+          f"dense step's (tolerance {SPLIT_LEAF_REL:g})")
+    rec = dict(_slim(rs), dense_losses=dense_parts,
+               dense_peak_bytes=dense_peak, dense_s=dense_s,
+               split_vs_dense_trunk_head_grad_rel=rest)
+    unet_note = ""
+    if split_unet:
+        dense_f64, dense_leaf = worst_rel({p: dense_grads[p] for p in unet},
+                                          f64)
+        shard_f64, shard_leaf = worst_rel(summed, f64)
+        worst, worst_leaf = worst_rel(summed, {p: dense_grads[p]
+                                               for p in unet})
+        tol = max(SHARD_F64_FACTOR * dense_f64, SHARD_GRAD_FLOOR)
+        check(shard_f64 <= tol, f"{label}: the split U-Net's gradient "
+              f"{shard_leaf} is {shard_f64:.3g} of its largest magnitude "
+              f"from the float64 one; the dense step's is {dense_f64:.3g} "
+              f"({dense_leaf}; tolerance {tol:.3g})")
+        unet_note = (f"; U-Net gradients against the float64 evaluation: "
+                     f"split {shard_f64:.3g} ({shard_leaf}), dense "
+                     f"{dense_f64:.3g} ({dense_leaf}) of a leaf's largest "
+                     f"magnitude (tolerance {tol:.3g}); split against dense "
+                     f"{worst:.3g} ({worst_leaf})")
+        rec.update(split_vs_dense_unet_grad_rel=worst,
+                   split_vs_float64=shard_f64, dense_vs_float64=dense_f64)
+    print(f"{label} (float32, TF32 off; trunk split along H"
+          f"{', U-Net along D' if split_unet else ''}): loss parts {got} "
+          f"against the dense step's {dense_parts}; trunk and head "
+          f"gradients within {rest:.3g} ({rest_leaf}) of a leaf's largest "
+          f"magnitude{unet_note}; peak memory by rank "
           f"{[r['peak_bytes'] for r in rs]} B against the dense step's "
           f"{dense_peak} B ({base} B allocated before it; the dense step "
           f"{dense_s:.3f} s)", flush=True)
-    return launches, dict(_slim(rs), dense_losses=dense_parts,
-                          dense_peak_bytes=dense_peak, dense_s=dense_s,
-                          split_vs_dense_unet_grad_rel=worst,
-                          split_vs_float64=shard_f64,
-                          dense_vs_float64=dense_f64)
+    return launches, rec
 
 
 def mesh_heart(tmp, dev):
     """Phase mesh_heart: (1, 1) under NCCL against the plain step, bit for
     bit; (2, 1) on two gloo ranks on one card against the mean-gradient
-    step; (1, 2) 'finetune' with shard_unet_spatial against the dense
-    step; the CLI's refusal.  Returns (launches by path, records)."""
+    step; (1, 2) 'beginning' and 'finetune' (the trunk split along H, the
+    U-Net along D) against the dense step; the CLI's refusal.  Returns
+    (launches by path, records)."""
     import torch
 
     from cfun_tpu_torch import config as port_config
@@ -3131,12 +3190,14 @@ def mesh_heart(tmp, dev):
     del batches
     torch.cuda.empty_cache()
 
-    # (1, 2) 'finetune': the U-Net and its losses split along D; float32
-    fcfg = port_config.heart_config("finetune", compute_dtype="float32",
-                                    shard_unet_spatial=True)
-    launches["mesh_heart_1x2_finetune"], recs["heart 1x2 finetune"] = \
-        shard_vs_dense("heart 1x2 finetune", fcfg, ckpt_ft,
-                       heart_train_batch(fcfg, dev), dev, tmp)
+    # (1, 2), float32: the trunk split along H, the U-Net and its losses
+    # along D, at 'beginning' and at 'finetune'
+    for stage, path in (("beginning", ckpt), ("finetune", ckpt_ft)):
+        scfg = port_config.heart_config(stage, compute_dtype="float32",
+                                        shard_unet_spatial=True)
+        name = f"heart 1x2 {stage}"
+        launches[f"mesh_heart_1x2_{stage}"], recs[name] = split_vs_dense(
+            name, scfg, path, heart_train_batch(scfg, dev), dev, tmp)
     cli_mesh_refusal(tmp)
     return launches, recs
 
@@ -3172,7 +3233,7 @@ def mesh_multicard(tmp, dev):
     fcfg = port_config.heart_config("finetune", compute_dtype="float32",
                                     shard_unet_spatial=True)
     launches["mesh_heart_1x2_finetune_nccl"], \
-        recs["heart 1x2 finetune nccl"] = shard_vs_dense(
+        recs["heart 1x2 finetune nccl"] = split_vs_dense(
             "heart 1x2 finetune nccl", fcfg, ckpt_ft,
             heart_train_batch(fcfg, dev), dev, tmp, devices="cuda",
             backend="nccl")
@@ -3182,7 +3243,8 @@ def mesh_multicard(tmp, dev):
 def mesh_lits(tmp, dev, held):
     """Phase mesh_lits: (2, 1) 'beginning' on two gloo ranks on one card
     from lits_synth.npz, on held-out volumes 0 and 1, against the
-    mean-gradient step."""
+    mean-gradient step; (1, 2) 'beginning' in float32 (the trunk split
+    along H) against the dense step."""
     from cfun_tpu_torch import config as port_config
 
     cfg = port_config.lits_config("beginning")
@@ -3194,8 +3256,17 @@ def mesh_lits(tmp, dev, held):
                             ["cuda:0", "cuda:0"], "gloo", tmp, grads_of="")
     worst = check_mean_gradient("lits 2x1", rs, mean_gradient_update(
         cfg, ckpt, batches, dev))
-    return {"mesh_lits_2x1": launches}, {
-        "lits 2x1": dict(_slim(rs), worst_leaf_rel=worst)}
+    del batches
+    # (1, 2) float32: the P3D35 trunk split along H, checkpointed block by
+    # block (remat_trunk)
+    scfg = port_config.lits_config("beginning", compute_dtype="float32")
+    split_launches, split = split_vs_dense(
+        "lits 1x2 beginning", scfg, ckpt,
+        lits_train_batch(scfg, held[0][0], held[0][1], dev), dev, tmp)
+    return ({"mesh_lits_2x1": launches,
+             "mesh_lits_1x2_beginning": split_launches},
+            {"lits 2x1": dict(_slim(rs), worst_leaf_rel=worst),
+             "lits 1x2 beginning": split})
 
 
 def _slim(recs):
@@ -3205,6 +3276,211 @@ def _slim(recs):
                        if k not in ("first_params", "grads", "digests",
                                     "shapes")}
                       for r in recs]}
+
+
+# phase roofline: calls a captured graph holds (the JAX package's chain)
+# and timed singles; the dense forms' GFLOP and GB as cost_of counts them
+# must be the same on the card and on 'meta'
+ROOFLINE_CHAIN, ROOFLINE_REPS = 8, 5
+
+
+def _tree_equal(a, b):
+    """Every tensor leaf of ``a`` bit-equal to ``b``'s."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def meta_tree(params):
+    """``params`` with every leaf an empty tensor of its shape on 'meta'."""
+    import torch
+
+    from cfun_tpu_torch import weights
+
+    return weights._unflatten({k: torch.empty_like(v, device="meta")
+                               for k, v in weights._leaves(params).items()})
+
+
+def roofline_segment(label, fn, args, cost, counters, dev):
+    """One segment of phase roofline: ``fn(*args)`` once on a side stream
+    (the eager reference and its launches, the warm-up of the capture
+    stream), then ROOFLINE_CHAIN calls captured in one CUDA graph on that
+    stream (the launches counted in the capture must be the eager call's
+    times the captures; a replay runs them again and counts none), one
+    replay whose every call's outputs must be bit-equal to the eager
+    call's, then ``roofline.time_amortized`` on that graph (and the
+    outputs again).  ``cost``: cost_of of the segment's dense form.
+    Returns (record, the launches counted in the capture)."""
+    import torch
+
+    from cfun_tpu_torch.utils import roofline
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    reset_counts(counters)
+    with torch.cuda.stream(stream):
+        ref = fn(*args)
+    stream.synchronize()
+    eager = {name: mod.launches for name, mod in counters.items()}
+    reset_counts(counters)
+    chained = roofline.chain_graph(fn, args, ROOFLINE_CHAIN, dev, warmup=0,
+                                   stream=stream)
+    captured = {name: mod.launches for name, mod in counters.items()}
+    check(captured == {k: v * ROOFLINE_CHAIN for k, v in eager.items()},
+          f"roofline {label}: launches in the capture {captured}, one eager "
+          f"call's {eager} x {ROOFLINE_CHAIN}")
+    chained()
+    torch.cuda.synchronize(dev)
+    check(all(_tree_equal(out, ref) for out in chained.outputs),
+          f"roofline {label}: a replayed call's outputs differ from the "
+          "eager call's")
+    tm = roofline.time_amortized(fn, args, device=dev, reps=ROOFLINE_REPS,
+                                 chained=chained)
+    replays = 2 + max(2, ROOFLINE_REPS - 1)  # the check's, time's warm-up
+    check(all(_tree_equal(out, ref) for out in chained.outputs),
+          f"roofline {label}: outputs after {replays} replays")
+    gen = roofline.chip_generation(dev)
+    rep = roofline.segment_report(tm["kernel_s"], gen=gen, **cost)
+    rep_replay = roofline.segment_report(tm["replay_s"], gen=gen, **cost)
+    rec = {"gflop": rep["gflop"], "gbytes": rep["gbytes"],
+           "single_ms": tm["single_s"] * 1e3, "chain_ms": tm["chain_s"] * 1e3,
+           "kernel_ms": tm["kernel_s"] * 1e3,
+           "replay_ms": tm["replay_s"] * 1e3,
+           "dispatch_ms": tm["dispatch_s"] * 1e3, "chain": tm["chain"],
+           "tflops_per_s": rep["tflops_per_s"], "mfu": rep["mfu"],
+           "hbm_bw_util": rep["hbm_bw_util"],
+           "replay_tflops_per_s": rep_replay["tflops_per_s"],
+           "replay_mfu": rep_replay["mfu"],
+           "replay_hbm_bw_util": rep_replay["hbm_bw_util"],
+           "launches_eager": eager, "launches_captured": captured,
+           "replays": replays,
+           "launches_replayed": {k: v * replays for k, v in captured.items()}}
+    print(f"roofline {label}: {rec['gflop']} GFLOP, {rec['gbytes']} GB "
+          f"(dense form, cost_of); single {rec['single_ms']:.3f} ms, kernel "
+          f"{rec['kernel_ms']:.3f} ms, replay {rec['replay_ms']:.3f} ms, "
+          f"dispatch {rec['dispatch_ms']:.3f} ms; kernel: "
+          f"{rec['tflops_per_s']} TFLOP/s, mfu {rec['mfu']}, hbm_bw_util "
+          f"{rec['hbm_bw_util']}; replay: {rec['replay_tflops_per_s']} "
+          f"TFLOP/s, mfu {rec['replay_mfu']}, hbm_bw_util "
+          f"{rec['replay_hbm_bw_util']}; launches eager {eager}, in the "
+          f"capture {captured} ({ROOFLINE_CHAIN} captures x {replays} "
+          "replays run them again); every replayed output bit-equal to the "
+          "eager call's", flush=True)
+    del chained
+    torch.cuda.empty_cache()
+    return rec, captured
+
+
+def roofline_path(label, det, dense_det, vol, counters, dev):
+    """Phase roofline on one served path: the trunk, the mask head and the
+    whole packed request (``roofline.packed_infer_program``) of ``det``,
+    each through :func:`roofline_segment`, counted on ``dense_det`` (the
+    same configuration with pallas_unet=False, the same parameters).  The
+    trunk takes a seeded volume of the molded shape in the compute dtype,
+    the mask head the served crops of ``vol``; the trunk's and the mask
+    head's counts on the card must equal their counts on 'meta'.  Returns
+    (records by segment, the request capture's launches)."""
+    import torch
+
+    from cfun_tpu_torch.models import cfun
+    from cfun_tpu_torch.models.heads import apply_mask_head
+    from cfun_tpu_torch.utils import roofline
+
+    cfg, params = det.cfg, det.params
+    dt = cfun.compute_dtype(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    image = torch.randn((1, 1, *cfg.image_shape), generator=gen,
+                        device=dev).to(dt)
+    crops = capture_crop(cfun, det, vol)
+
+    def trunk(p, im):
+        with torch.inference_mode():
+            return cfun.apply_trunk(p, im, cfg)
+
+    def head(fused):
+        def run(p, c):
+            with torch.inference_mode():
+                return apply_mask_head(p["mask"], c, stage=cfg.stage,
+                                       dtype=dt, fused=fused)
+        return run
+
+    recs = {}
+    meta = meta_tree(params)
+    for seg, fn, dense_fn, args in (
+            ("trunk", trunk, trunk, (params, image)),
+            ("mask_head", head(cfg.pallas_unet), head(False),
+             (params, crops))):
+        meta_args = (meta, *(a.to("meta") for a in args[1:]))
+        # one call first on each: the phase up-convs' kernels are composed
+        # at a leaf's first use and kept (nn.py::_phase_kernel), once, not
+        # a call's work
+        dense_fn(*args)
+        dense_fn(*meta_args)
+        cost = roofline.cost_of(dense_fn, *args)
+        on_meta = roofline.cost_of(dense_fn, *meta_args)
+        check(cost == on_meta, f"roofline {label} {seg}: cost_of on the card "
+              f"{cost} against 'meta' {on_meta}")
+        recs[seg], _ = roofline_segment(f"{label} {seg}", fn, args, cost,
+                                        counters, dev)
+    wire, window, _ = det.mold(vol)
+    fn, args = roofline.packed_infer_program(det, vol, molded=(wire, window))
+    dfn, dargs = roofline.packed_infer_program(dense_det, vol,
+                                               molded=(wire, window))
+    cost = roofline.cost_of(dfn, *dargs)
+    recs["request"], captured = roofline_segment(f"{label} request", fn,
+                                                 args, cost, counters, dev)
+    del crops, image
+    torch.cuda.empty_cache()
+    return recs, captured
+
+
+def roofline_step(label, cfg, ckpt, batch, s_per_step, dev):
+    """The mfu of an isolated train step: cost_of one step's forward and
+    backward (``loss_and_grads``, K1 not counted) on the card, over the
+    median s/step its train phase measured (the optimizer and the host's
+    part of the step included)."""
+    import torch
+
+    from cfun_tpu_torch import weights
+    from cfun_tpu_torch.ops.anchors import config_anchors
+    from cfun_tpu_torch.train import step as tstep
+    from cfun_tpu_torch.utils import roofline
+
+    params, _ = weights.load_npz(os.path.join(ROOT, ckpt), cfg)
+    init, _ = tstep.make_train_step(cfg, config_anchors(cfg))
+    state = init(weights.to_device(params, dev))
+    anchors = torch.from_numpy(config_anchors(cfg)).to(dev)
+    draws = tstep.draw_train(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                             dev)
+    cost = roofline.cost_of(tstep.loss_and_grads, state.params, batch,
+                            anchors, cfg, draws)
+    rep = roofline.segment_report(s_per_step, gen=roofline.chip_generation(
+        dev), **cost)
+    print(f"roofline {label} train step: {rep['gflop']} GFLOP, "
+          f"{rep['gbytes']} GB a step (forward and backward, cost_of) over "
+          f"{s_per_step:.4f} s/step: {rep['tflops_per_s']} TFLOP/s, mfu "
+          f"{rep['mfu']}, hbm_bw_util {rep['hbm_bw_util']}", flush=True)
+    del state, params
+    torch.cuda.empty_cache()
+    return dict(rep, s_per_step=s_per_step)
+
+
+def bench_keys(recs, floor_ms, gen):
+    """bench.py's roofline extras (bench.py:229-271) from the dense heart
+    path's trunk and mask head ('unet')."""
+    out = {}
+    for name, seg in (("trunk", "trunk"), ("unet", "mask_head")):
+        r = recs[seg]
+        out[f"{name}_mfu"] = r["mfu"]
+        out[f"{name}_ms"] = round(r["single_ms"], 1)
+        out[f"{name}_kernel_ms"] = round(r["kernel_ms"], 1)
+        out[f"{name}_gflop"] = r["gflop"]
+    out["dispatch_floor_ms"] = round(floor_ms, 2)
+    out["chip"] = gen
+    return out
 
 
 def main() -> int:
@@ -3236,7 +3512,6 @@ def main() -> int:
               f"{'/'.join(families) or args[0]}", file=sys.stderr,
               flush=True)
         return 1
-    sys.path.insert(0, ROOT)
     import numpy as np
 
     from cfun_tpu_torch import _build
@@ -3248,6 +3523,7 @@ def main() -> int:
     from cfun_tpu_torch.models.unet3d import apply_unet, apply_unet_fused
     from cfun_tpu_torch.ops import fused_conv as k2
     from cfun_tpu_torch.ops import sorted_nms as k1
+    from cfun_tpu_torch.utils import roofline
 
     counters = {"sorted_nms": k1, "fused_conv3d": k2}
     dev = torch.device("cuda", 0)
@@ -3257,6 +3533,8 @@ def main() -> int:
     cli_stats = {}
     # by train path: steps, s/step, peak bytes, losses, K1 at its shape
     training = {}
+    # phase roofline: by served path, its segments' records
+    roof = {}
     detectors = []
 
     with phase("env"):
@@ -3517,6 +3795,32 @@ def main() -> int:
                 del tparams
                 torch.cuda.empty_cache()
 
+        with phase("roofline"):
+            floor_ms = roofline.measure_dispatch_floor(dev) * 1e3
+            gen = roofline.chip_generation(dev)
+            print(f"roofline: {card}: peaks {gen} {roofline.PEAKS[gen]}; "
+                  f"dispatch floor {floor_ms:.4f} ms", flush=True)
+            ft_dense = Detector(tcfg_ft.replace(pallas_unet=False),
+                                ftdet.params)
+            for path, d, dense in (("serve", det, det),
+                                   ("serve_fused", fdet, det),
+                                   ("serve_ft", ftdet, ft_dense)):
+                roof[path], launches_by_path[f"roofline_{path}"] = \
+                    roofline_path(path, d, dense, vols[0], counters, dev)
+            ft_dense.close()
+            del ft_dense
+            roof["bench_keys"] = bench_keys(roof["serve"], floor_ms, gen)
+            print(f"roofline bench.py keys (serve): "
+                  f"{json.dumps(roof['bench_keys'])}", flush=True)
+            tcfg = port_config.heart_config("beginning")
+            roof["train_heart_beginning"] = roofline_step(
+                "heart beginning", tcfg, CHECKPOINTS["heart"][0],
+                heart_train_batch(tcfg, dev),
+                training["heart beginning"]["median_s_per_step_after_first"],
+                dev)
+            roof["dispatch_floor_ms"] = floor_ms
+            torch.cuda.empty_cache()
+
         with phase("train_loop_heart"):
             tmp = tempfile.mkdtemp(prefix="cfun_loop_heart_")
             try:
@@ -3652,6 +3956,16 @@ def main() -> int:
                                        lfdet.params["mask"]["unet"], crop,
                                        "finetune")
             del crop
+
+        with phase("roofline"):
+            lfloor_ms = roofline.measure_dispatch_floor(dev) * 1e3
+            print(f"roofline: {card}: dispatch floor {lfloor_ms:.4f} ms",
+                  flush=True)
+            for path, d in (("serve_lits", ldet), ("serve_lits_fused", lfdet)):
+                roof[path], launches_by_path[f"roofline_{path}"] = \
+                    roofline_path(path, d, ldet, held[0][0], counters, dev)
+            roof["lits_dispatch_floor_ms"] = lfloor_ms
+            torch.cuda.empty_cache()
 
         with phase("cli_lits"):
             tmp = tempfile.mkdtemp(prefix="cfun_cli_lits_")
@@ -3819,6 +4133,20 @@ def main() -> int:
             check(any("pinned" in name.lower() for name in pinned),
                   f"{path}: the wire uploads from page-locked memory: "
                   f"{pinned}")
+        # the whole request's graph replays against the profiled requests'
+        # device busy (which also holds the wire's upload and the output's
+        # copy down)
+        for path, b in busy.items():
+            req = roof.get(path, {}).get("request")
+            if req:
+                print(f"profile vs roofline {path}: device busy {b:.3f} ms a "
+                      f"request; the packed program's kernel "
+                      f"{req['kernel_ms']:.3f} ms ({req['kernel_ms'] / b:.3f}"
+                      f" of busy), replay {req['replay_ms']:.3f} ms "
+                      f"({req['replay_ms'] / b:.3f}), single "
+                      f"{req['single_ms']:.3f} ms, dispatch "
+                      f"{req['dispatch_ms']:.3f} ms", flush=True)
+                req["profile_busy_ms"] = b
 
     with phase("small"):
         # full float32 on the card (cuDNN convs default to TF32)
@@ -3882,7 +4210,9 @@ def main() -> int:
     k2_launch = {p: v["fused_conv3d"] for p, v in launches_by_path.items()}
     for path, n in k1_launch.items():
         check(n >= 1, f"K1 launched on {path}")
-    for path in ("serve_fused", "serve_ft", "serve_lits_fused"):
+    for path in ("serve_fused", "serve_ft", "serve_lits_fused",
+                 "roofline_serve_fused", "roofline_serve_ft",
+                 "roofline_serve_lits_fused"):
         if path in k2_launch:
             check(k2_launch[path] >= 1, f"K2 launched on {path}")
     k2_main_path = "serve_fused" if heart else "serve_lits_fused"
@@ -3959,6 +4289,7 @@ def main() -> int:
     serving["serving"]["small_label_agree"] = small_agree
     serving["serving"]["cli"] = cli_stats
     serving["serving"]["training"] = training
+    serving["serving"]["roofline"] = roof
     print(json.dumps(serving), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -470,3 +470,27 @@ def test_halo_primitives_on_the_card(cuda):
             want = want.detach().numpy()
             scale = float(np.abs(want).max())
             assert float(np.abs(have - want).max()) <= 1e-5 * scale, name
+
+
+def test_time_amortized_replays_a_bf16_matmul(cuda):
+    """``utils/roofline.py``'s timing on the card: a bf16 matmul chained
+    through one captured CUDA graph, whose replayed outputs equal an eager
+    call's, and the report against the card's peaks."""
+    from cfun_tpu_torch.utils import roofline
+
+    a = torch.randn(2048, 2048, device=cuda).to(torch.bfloat16)
+    chained = roofline.chain_graph(torch.matmul, (a, a), 4, cuda)
+    tm = roofline.time_amortized(torch.matmul, (a, a), device=cuda, reps=3,
+                                 chained=chained)
+    want = a @ a
+    torch.cuda.synchronize()
+    assert len(chained.outputs) == 4
+    assert all(torch.equal(y, want) for y in chained.outputs)
+    assert tm["chain"] == 4 and tm["replay_s"] > 0
+    assert 0.0 <= tm["kernel_s"] <= tm["single_s"]
+    assert tm["kernel_s"] + tm["dispatch_s"] == pytest.approx(tm["single_s"])
+    cost = roofline.cost_of(torch.matmul, a, a)
+    assert cost["flops"] == 2 * 2048 ** 3
+    rep = roofline.segment_report(tm["replay_s"], gen=roofline.chip_generation(
+        cuda), **cost)
+    assert 0.0 < rep["mfu"] < 1.0

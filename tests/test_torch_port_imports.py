@@ -69,6 +69,34 @@ def test_train_modules_import_alone():
     assert proc.stdout.strip() == "[] []", proc.stdout
 
 
+_ROOFLINE_PROBE = r"""
+import importlib, pkgutil, sys
+import cfun_tpu_torch
+names = {m.name for m in pkgutil.walk_packages(cfun_tpu_torch.__path__,
+                                               "cfun_tpu_torch.")}
+mod = importlib.import_module("cfun_tpu_torch.utils.roofline")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "ml_dtypes", "cfun_tpu")
+             or m.startswith(("jax.", "jaxlib.", "cfun_tpu.")))
+print(mod.__name__ in names, sorted(mod.PEAKS), bad)
+"""
+
+
+def test_roofline_imports_alone_with_card_peaks_only():
+    """``utils/roofline.py`` is found by the walk, imports neither JAX nor
+    the JAX package, and its peak table and source name no TPU."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _ROOFLINE_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "True ['cpu', 'h100_sxm'] []", proc.stdout
+    with open(os.path.join(ROOT, "cfun_tpu_torch", "utils",
+                           "roofline.py")) as f:
+        source = f.read().lower()
+    assert not re.search(r"\btpu\b|v5e|v5p|\bv4\b", source)
+
+
 def test_spawned_rank_imports_no_jax():
     """A rank that ``parallel/launch.py`` spawns (from this process, which
     has imported JAX and the JAX package) starts from a fresh interpreter:

@@ -8,8 +8,11 @@ The steps (tests/torch_port_ranks.py::step_suite; tiny_config, float32,
 K1's plain version): a (2, 1) step, two (2, 1) steps under
 ``grad_accum_steps=2``, a (1, 2) step at stage 'finetune' with
 ``shard_unet_spatial`` (the U-Net checkpointed, dropout 0.6, the edge
-loss; 32^3 crops so that each of the two shards holds 16 planes), and a
-(2, 2) step at 'beginning' with ``shard_unet_spatial``.  Each is held
+loss; 32^3 crops so that each of the two shards holds 16 planes), a
+(2, 2) step at 'beginning' with ``shard_unet_spatial``, and (1, 2) steps
+at 'beginning' of the heart and of the tiny LiTS configuration (P3D35,
+the trunk checkpointed block by block) with the U-Net whole.  Every
+step with two space ranks splits the trunk along H.  Each is held
 against ``batched_train_forward`` on the same volumes with the same draws
 and one dense update: the loss parts to rtol 1e-5, the gradients the
 ranks summed within 1e-5 of each leaf's largest magnitude (the mask
@@ -84,6 +87,16 @@ def _cfgs(stage="beginning", **extra):
             pconfig.tiny_config(stage, **BASE, **extra))
 
 
+def _tiny_lits_beginning(mod):
+    """tests/test_torch_port_train_lits.py's tiny LiTS configuration at
+    'beginning' (detection only, ``remat_trunk``)."""
+    return mod.tiny_config("beginning", **BASE).replace(
+        name="lits", num_classes=3, backbone="P3D35",
+        backbone_stem_kernel=(5, 7, 7), intensity_norm="hu_window",
+        pad_shape=(64, 128, 128), mask_class_weights=(1.0, 1.0, 100.0),
+        unet_dropout_rate=0.0, remat_trunk=True)
+
+
 def _np_draws(d):
     return ((d.targets[0].numpy(), d.targets[1].numpy()),
             None if d.dropout_masks is None
@@ -106,12 +119,17 @@ def world():
     key = jax.random.PRNGKey(5)
     jdraws = [T.jax_draws(k, jcfg, pcfg) for k in jax.random.split(key, 2)]
     _, fcfg = _cfgs("finetune", **FINETUNE)
+    lcfg = _tiny_lits_beginning(pconfig)
+    ljp = jax_params(_tiny_lits_beginning(jconfig), 1)
+    lits_batch = T.organ_batch(lcfg, weights.params_from_numpy(ljp, lcfg), 1)
     return dict(jcfg=jcfg, pcfg=pcfg, jp=jp, batches=batches, key=key,
                 jdraws=jdraws, fcfg=fcfg,
                 acc_draws=[_gen_draws(pcfg, 11 + i) for i in range(4)],
                 ft_draws=_gen_draws(fcfg, 21),
                 shard_draws=[_gen_draws(pcfg.replace(**SHARD), 31 + i)
-                             for i in range(2)])
+                             for i in range(2)],
+                split_draws=_gen_draws(pcfg, 41), lcfg=lcfg, ljp=ljp,
+                lits_batch=lits_batch, lits_draws=_gen_draws(lcfg, 51))
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +144,10 @@ def two_ranks(world):
                   [[b[0], b[1]], [b[2], b[3]]], [acc[:2], acc[2:]], None),
         "space": (fcfg, jp, [[b[0]]], [[_np_draws(world["ft_draws"])]],
                   (1, 2)),
+        "trunk": (pcfg, jp, [[b[0]]], [[_np_draws(world["split_draws"])]],
+                  (1, 2)),
+        "lits": (world["lcfg"], world["ljp"], [[world["lits_batch"]]],
+                 [[_np_draws(world["lits_draws"])]], (1, 2)),
     }
     ranks = launch(R.step_suite, 2, 1, args=(cases,), devices="cpu")
     return {name: [r[name] for r in ranks] for name in cases}
@@ -273,6 +295,33 @@ def test_spatially_sharded_step_matches_dense(world, two_ranks):
     _assert_step_close(runs[0]["steps"][0], want)
     _assert_grads_close(runs[0]["grads"], want[2])
     assert want[0]["mrcnn_mask_edge_loss"] > 0
+
+
+def test_trunk_split_step_matches_dense(world, two_ranks):
+    """(1, 2) at 'beginning' with the U-Net whole: the trunk split along H
+    over the row's two ranks, the rest of the step on the gathered maps."""
+    runs = two_ranks["trunk"]
+    assert [r["space_index"] for r in runs] == [0, 1]
+    _same_on_every_rank(runs)
+    want = _dense_step(world["pcfg"], world["jp"], world["batches"][:1],
+                       [world["split_draws"]])
+    _assert_step_close(runs[0]["steps"][0], want)
+    _assert_grads_close(runs[0]["grads"], want[2])
+    assert want[0]["mrcnn_mask_loss"] > 0
+    assert any(p.startswith("backbone/") for p in want[2])
+
+
+def test_lits_trunk_split_step_matches_dense(world, two_ranks):
+    """(1, 2) LiTS 'beginning' (P3D35, detection only): the checkpointed
+    split blocks rerun their halo exchanges in the recomputation."""
+    runs = two_ranks["lits"]
+    _same_on_every_rank(runs)
+    want = _dense_step(world["lcfg"], world["ljp"], [world["lits_batch"]],
+                       [world["lits_draws"]])
+    _assert_step_close(runs[0]["steps"][0], want)
+    _assert_grads_close(runs[0]["grads"], want[2])
+    assert want[0]["mrcnn_class_loss"] > 0
+    assert not any(p.startswith("mask/") for p in want[2])
 
 
 def test_data_and_space_step_matches_dense(world, four_ranks):

@@ -30,32 +30,41 @@ def _float32_on(device):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def primitives(mesh, x, cot, convs):
-    """The halo primitives on this rank's D shard of ``x`` [N, C, D, H, W]
-    over the mesh's space group: each output shard and the gradients of
-    sum(output shard * the same shard of ``cot_*``) (this rank's share of
-    the objective) with respect to the input shard and the conv weights.
-    ``convs``: (name, weight, stride)."""
+def primitives(mesh, x, cot, convs, dim=2):
+    """The halo primitives on this rank's shard along ``dim`` (2 = D, 3 =
+    H) of ``x`` [N, C, D, H, W] over the mesh's space group: each output
+    shard and the gradients of sum(output shard * the same shard of
+    ``cot[name]``) (this rank's share of the objective) with respect to
+    the input shard and the conv weights.  ``convs``: (name, weight,
+    stride).  Along D also the sharded instance norm; along H also
+    ``gather_along``, whose output is whole and whose rank r takes
+    ``cot['gather'][r]``."""
     group, dev = mesh.space_group, mesh.device
     _float32_on(dev)
+    rank = torch.distributed.get_rank(group)
     out = {}
 
-    def run(name, fn, *params):
-        xs = halo.shard_of(torch.from_numpy(x), group).to(dev, copy=True)
+    def run(name, fn, *params, whole=False):
+        xs = halo.shard_of(torch.from_numpy(x), group, dim).to(dev, copy=True)
         xs.requires_grad_(True)
         leaves = [torch.from_numpy(p).to(dev).requires_grad_(True)
                   for p in params]
         y = fn(xs, *leaves)
-        c = halo.shard_of(torch.from_numpy(cot[name]), group).to(dev)
-        grads = torch.autograd.grad(torch.sum(y * c), [xs] + leaves)
+        c = torch.from_numpy(cot[name][rank]) if whole else \
+            halo.shard_of(torch.from_numpy(cot[name]), group, dim)
+        grads = torch.autograd.grad(torch.sum(y * c.to(dev)), [xs] + leaves)
         out[name] = [_np(y)] + [_np(g) for g in grads]
 
     for h in (1, 2):
-        run(f"halo{h}", lambda v, h=h: halo.exchange_halo(v, group, h))
-    run("inorm", lambda v: halo.instance_norm_sharded(v, group))
+        run(f"halo{h}", lambda v, h=h: halo.exchange_halo(v, group, h,
+                                                          dim=dim))
+    if dim == 2:
+        run("inorm", lambda v: halo.instance_norm_sharded(v, group))
     for name, w, stride in convs:
-        run(name, lambda v, p, s=stride: halo.halo_conv3d({"w": p}, v, group,
-                                                          stride=s), w)
+        run(name, lambda v, p, s=stride: halo.halo_conv3d(
+            {"w": p}, v, group, stride=s, dim=dim), w)
+    if dim == 3:
+        run("gather", lambda v: halo.gather_along(v, group, 3), whole=True)
     return out
 
 
@@ -95,14 +104,38 @@ def mask_losses_shard(mesh, cfg, masks, pos_valid, logits):
     return float(ml), float(el), _np(g)
 
 
-def halo_suite(mesh, x, cot4, cot2, convs, unet_case, loss_cases):
+def trunk_split(mesh, cfg, params_np, image, misaligned):
+    """``apply_trunk`` split along H over the mesh's space group on the
+    whole ``image`` [1, 1, D, H, W]: the gathered maps (p2, p3, rpn_logits,
+    rpn_deltas, numpy), and the error ``misaligned`` (an image whose local
+    H is not a multiple of 16) raises."""
+    from cfun_tpu_torch.models import cfun
+
+    params = weights.params_from_numpy(params_np, cfg)
+    with torch.no_grad():
+        out = cfun.apply_trunk(params, torch.from_numpy(image), cfg,
+                               group=mesh.space_group)
+    try:
+        cfun.apply_trunk(params, torch.from_numpy(misaligned), cfg,
+                         group=mesh.space_group)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {k: _np(v) for k, v in out._asdict().items()}, refused
+
+
+def halo_suite(mesh, x, cot4, cot2, convs, xh, coth4, coth2, convs_h,
+               unet_case, loss_cases, trunk_case):
     """Every case of tests/test_torch_port_halo.py in one launch of four
-    ranks: the primitives over the launch's (1, 4) mesh and over a (2, 2)
-    mesh; then, on the (2, 2) mesh, row 0 runs the sharded U-Net at both
-    stages and row 1 the sharded mask losses of each form."""
-    out = {"space4": primitives(mesh, x, cot4, convs)}
+    ranks: the primitives split along D and along H over the launch's
+    (1, 4) mesh and over a (2, 2) mesh; then, on the (2, 2) mesh, row 0
+    runs the sharded U-Net at both stages and row 1 the sharded mask
+    losses of each form and the trunk split along H."""
+    out = {"space4": primitives(mesh, x, cot4, convs),
+           "space4_h": primitives(mesh, xh, coth4, convs_h, dim=3)}
     mesh22 = make_mesh(2, 2, devices="cpu")
     out["space2"] = primitives(mesh22, x, cot2, convs)
+    out["space2_h"] = primitives(mesh22, xh, coth2, convs_h, dim=3)
     if mesh22.data_index == 0:
         unet_np, crops, cots = unet_case
         out["unet"] = {stage: unet_shard(mesh22, unet_np, crops, cot, stage)
@@ -112,6 +145,7 @@ def halo_suite(mesh, x, cot4, cot2, convs, unet_case, loss_cases):
         out["losses"] = {name: mask_losses_shard(mesh22, cfg, masks,
                                                  pos_valid, logits)
                          for name, cfg in cfgs.items()}
+        out["trunk"] = trunk_split(mesh22, *trunk_case)
     out["space_index"] = mesh22.space_index
     return out
 
