@@ -7,16 +7,21 @@ dict).  The plain reference serves the same raw volume and weights in
 float32 and judges them, as a served token is judged by the reference's
 logits at the position the program chose it:
 
-* ``det_box_gap_vox``: the distance, in molded voxels (the largest
-  coordinate difference), from each program detection to the nearest of
-  the reference's candidates (every proposal's refined box that the
-  classifier calls foreground), the worst of them; ``NO_MATCH`` where
-  the program keeps no detection and the reference keeps one, or the
-  reference has no candidate to match;
-* ``det_score_gap``: how far the reference scores the candidate nearest
-  the program's first detection below its own best candidate, or any
-  matched candidate below the confidence limit (with no program
-  detection: how far the reference's best lies above the limit);
+* ``det_missed``: the reference's own detections that no program
+  detection overlaps by the matching IoU (the configuration's detection
+  NMS threshold, above which two boxes are one object, or 0.5, the usual
+  criterion of a detection benchmark, where that is lower), each read as how far the reference's score lies
+  above the confidence limit; the largest, 0 where none is missed.  A
+  detection the program drops, or moves off its object, reads its whole
+  margin; one that only the rounding of a near-tie moves, or that lies at
+  the limit, reads about 0;
+* ``det_unsupported``: each program detection rescored by the
+  reference's classifier at the program's own box (RoIAlign of the
+  reference's pyramid), read as how far the reference's probability of
+  the program's class lies below the confidence limit; the largest;
+* ``det_overlap_excess``: how far the largest IoU between two detections
+  the program keeps lies above the configuration's detection NMS
+  threshold, a guarantee of the NMS (0 where it holds);
 * ``label_mismatch_pct``: on the program's own boxes, the labels whose
   class is not the argmax of the reference's probabilities, in % of the
   voxels either side labels as foreground (the heart's 2x crop, LiTS'
@@ -40,39 +45,41 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-from portbench.reference.model import label_probs, serve, uses_overlap_paste
+from portbench.reference.model import (Served, iou_matrix, label_probs,
+                                       rescore, serve, uses_overlap_paste)
 from portbench.reference.serve import molded_image, unmold, window_of
 
-NO_MATCH = 1000.0
-NUMBERS = ("det_box_gap_vox", "det_score_gap", "label_mismatch_pct",
-           "label_gap_mean", "label_gap_max", "unmold_mismatch")
+NUMBERS = ("det_missed", "det_unsupported", "det_overlap_excess",
+           "label_mismatch_pct", "label_gap_mean", "label_gap_max",
+           "unmold_mismatch")
 
 
-def detection_numbers(cfg, det, kept, ref) -> Dict[str, float]:
-    """The program's detections (molded voxel boxes) against the
-    reference's candidates and detections."""
-    refined, scores, foreground = ref.candidates
+def detection_numbers(params, cfg, det, kept, ref: Served, prec
+                      ) -> Dict[str, float]:
+    """The program's kept detections (molded voxel boxes) against the
+    reference's detections, its classifier and the NMS threshold."""
     thr = cfg.detection_min_confidence
-    has = bool(foreground.any())
-    best = float(scores[foreground].max()) if has else 0.0
-    picked = det[kept]
-    if picked.shape[0] == 0:
-        return {"det_box_gap_vox": NO_MATCH if bool(ref.kept.any()) else 0.0,
-                "det_score_gap": max(0.0, best - thr) if has else 0.0}
-    if not has:
-        return {"det_box_gap_vox": NO_MATCH, "det_score_gap": 1.0}
-    box_gaps, score_gaps = [], []
-    for j, d in enumerate(picked):
-        dist = (refined - d[:6]).abs().amax(1)
-        dist = torch.where(foreground, dist, torch.full_like(dist, 1e30))
-        near = int(torch.argmin(dist))
-        box_gaps.append(float(dist[near]))
-        s = float(scores[near])
-        score_gaps.append(max(0.0, thr - s))
-        if j == 0:
-            score_gaps.append(max(0.0, best - s))
-    return {"det_box_gap_vox": max(box_gaps),
-            "det_score_gap": max(score_gaps)}
+    match = min(cfg.detection_nms_threshold, 0.5)
+    mine = det[kept]
+    theirs = ref.detections[ref.kept]
+    missed = 0.0
+    if theirs.shape[0]:
+        best = (iou_matrix(theirs[:, :6], mine[:, :6]).amax(1)
+                if mine.shape[0] else torch.zeros(theirs.shape[0],
+                                                  device=det.device))
+        lost = best < match
+        if bool(lost.any()):
+            missed = max(0.0, float((theirs[lost, 7] - thr).max()))
+    probs = rescore(params, cfg, ref, mine[:, :6], prec)
+    own = probs.gather(1, mine[:, 6:7].long().clamp(0, 1))[:, 0]
+    unsupported = max(0.0, float((thr - own).max())) if own.numel() else 0.0
+    excess = 0.0
+    if mine.shape[0] > 1:
+        iou = iou_matrix(mine[:, :6], mine[:, :6])
+        iou.fill_diagonal_(0.0)
+        excess = max(0.0, float(iou.max()) - cfg.detection_nms_threshold)
+    return {"det_missed": missed, "det_unsupported": unsupported,
+            "det_overlap_excess": excess}
 
 
 def label_numbers(cfg, probs, labels, kept) -> Dict[str, float]:
@@ -97,31 +104,38 @@ def label_numbers(cfg, probs, labels, kept) -> Dict[str, float]:
             "label_gap_max": float(gap.max()) if gap.numel() else 0.0}
 
 
-def judge(params, cfg, raw: np.ndarray, molded: Tuple, result: Dict,
-          device, prec: str = "float32") -> Tuple[Dict[str, float], List]:
-    """The numbers of one request: ``molded`` = (detections [Dmax, 8],
-    kept [Dmax], labels int8) as the program's graph handed them to the
-    host, ``result`` the program's result dict.  Returns (numbers, the
-    reference's NMS calls)."""
-    det_np, kept_np, labels_np = molded
+def reference(params, cfg, raw: np.ndarray, device, prec="float32"
+              ) -> Tuple[torch.Tensor, np.ndarray, Served]:
+    """The reference's request on ``raw``: (molded image, window, what its
+    graph serves)."""
     window = window_of(cfg, raw.shape)
     image = molded_image(cfg, raw, device)
-    ref = serve(params, cfg, image, torch.from_numpy(window).to(device),
-                prec)
+    return image, window, serve(params, cfg, image,
+                                torch.from_numpy(window).to(device), prec)
+
+
+def judge(params, cfg, raw: np.ndarray, ref: Tuple, molded: Tuple,
+          result: Dict, device, prec: str = "float32") -> Dict[str, float]:
+    """The numbers of one request: ``ref`` the reference's request on the
+    same raw volume (``reference``), ``molded`` = (detections [Dmax, 8],
+    kept [Dmax], labels int8) as the program's graph handed them to the
+    host, ``result`` the program's result dict."""
+    image, window, served = ref
+    det_np, kept_np, labels_np = molded
     det = torch.from_numpy(np.ascontiguousarray(det_np)).to(device)
     kept = torch.from_numpy(np.ascontiguousarray(kept_np)).to(device)
     labels = torch.from_numpy(np.ascontiguousarray(labels_np)).to(device)
-    out = detection_numbers(cfg, det, kept, ref)
     with torch.no_grad():
-        if bool(kept.any()) or not bool(ref.kept.any()):
+        out = detection_numbers(params, cfg, det, kept, served, prec)
+        if bool(kept.any()) or not bool(served.kept.any()):
             probs = label_probs(params, cfg, image, det, kept, prec)
             out.update(label_numbers(cfg, probs, labels, kept))
         else:  # every detection the reference keeps is missing
-            probs = label_probs(params, cfg, image, ref.detections,
-                                ref.kept, prec)
+            probs = label_probs(params, cfg, image, served.detections,
+                                served.kept, prec)
             out.update(label_numbers(cfg, probs, torch.zeros_like(
-                ref.labels), ref.kept))
-    del probs, image
+                served.labels), served.kept))
+    del probs
     again = unmold(cfg, det_np, kept_np, labels, raw.shape, window)
     mask = torch.from_numpy(np.ascontiguousarray(result["mask"])).to(device)
     diff = int((mask.to(torch.int16) != again["mask"]).sum()) \
@@ -131,7 +145,7 @@ def judge(params, cfg, raw: np.ndarray, molded: Tuple, result: Dict,
         diff += int((a != b).sum()) if a.shape == b.shape else max(a.size,
                                                                    1)
     out["unmold_mismatch"] = float(diff)
-    return out, ref.nms_calls
+    return out
 
 
 def worst(readings: Iterable[Dict[str, float]]) -> Dict[str, float]:

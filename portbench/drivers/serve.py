@@ -14,8 +14,9 @@ stages (mold, dispatch, finish), and reads the per-layer metrics from
 the profiler's trace, the detector's own timings and the reference.
 
 ``correct``: once the window has closed and the program is freed, one
-request of every volume of the pool (its occurrence drawn from the
-seed, the largest volume among them) is served again by the plain
+request of every volume of the pool (the largest among them), drawn from
+the seed over all of that volume's requests in the window (a reservoir
+of one), and the window's last request are served again by the plain
 reference (``reference/serve.py``) from the same raw volume and weights,
 and compared (``compare.py``) against the configuration's limits.
 """
@@ -55,37 +56,59 @@ def port_config(serve: dict, model: dict):
     return cfg
 
 
+def build(root, serve: dict, model: dict, seed: int, device):
+    """The program's detector for a configuration file's ``serve`` and
+    ``model`` blocks, on its weights (the checkpoint the file names, or
+    the seed's): (port config, reference config, Detector, the seeded
+    weights or None)."""
+    from cfun_tpu_torch.inference.pipeline import Detector
+
+    cfg = port_config(serve, model)
+    refcfg = RefConfig(model)
+    flat = None
+    if serve["weights"] == "seed":
+        flat = ref_weights.seeded_flat(refcfg, seed, device)
+        params = _port_tree(flat, cfg)
+    else:
+        from cfun_tpu_torch import weights as port_weights
+
+        params, _ = port_weights.load_npz(
+            os.path.join(root, serve["weights"]), cfg)
+    return cfg, refcfg, Detector(cfg, params, device=device), flat
+
+
+def reference_params(root, serve: dict, flat, device):
+    """The reference's own reading of the same weights."""
+    if flat is not None:
+        return ref_weights.nest(flat)
+    return ref_weights.load_npz(os.path.join(root, serve["weights"]),
+                                device)
+
+
+def pool(serve: dict, seed: int, device):
+    spec = serve["volumes"]
+    return volumes.pool(spec["generator"], spec["hw"], spec["depths"],
+                        seed, device)
+
+
 def run(ctx) -> dict:
     import torch
 
-    from cfun_tpu_torch.inference.pipeline import Detector
     from cfun_tpu_torch.ops import sorted_nms as k1
 
     device = ctx.device
-    serve, model = ctx.config["serve"], ctx.config["model"]
+    serve = ctx.config["serve"]
     traffic = ctx.traffic
-    cfg = port_config(serve, model)
-    refcfg = RefConfig(model)
     marks = {"import": time.perf_counter() - ctx.t0}
     if device.type == "cuda":
         from cfun_tpu_torch import _build
 
         _build.library()
     marks["build"] = time.perf_counter() - ctx.t0
-    if serve["weights"] == "seed":
-        flat = ref_weights.seeded_flat(refcfg, ctx.seed, device)
-        params = _port_tree(flat, cfg)
-    else:
-        from cfun_tpu_torch import weights as port_weights
-
-        params, _ = port_weights.load_npz(
-            os.path.join(ctx.root, serve["weights"]), cfg)
-    det = Detector(cfg, params, device=device)
-    del params
+    cfg, refcfg, det, flat = build(ctx.root, serve, ctx.config["model"],
+                                   ctx.seed, device)
     marks["weights"] = time.perf_counter() - ctx.t0
-    vols = volumes.pool(serve["volumes"]["generator"],
-                        serve["volumes"]["hw"], serve["volumes"]["depths"],
-                        ctx.seed, device)
+    vols = pool(serve, ctx.seed, device)
     n_pool = len(vols)
     order = volumes.order(n_pool, ctx.seed)
     marks["volumes"] = time.perf_counter() - ctx.t0
@@ -95,13 +118,12 @@ def run(ctx) -> dict:
     _sync(device)
     setup_s = time.perf_counter() - ctx.t0
 
-    # which occurrence of each volume is compared: drawn from the seed
+    # which request of each volume is compared: a reservoir of one drawn
+    # from the seed, so every request of the window is as likely
     rng = np.random.default_rng((ctx.seed, 7))
-    occurrences = (traffic["trace_requests"] // n_pool if ctx.trace
-                   else traffic["compare_occurrences"])
-    pick = [int(rng.integers(max(occurrences, 1))) for _ in range(n_pool)]
-    kept: Dict[int, dict] = {}
+    kept: Dict[int, tuple] = {}
     seen = [0] * n_pool
+    last: list = []
     latencies: List[float] = []
     timings: List[dict] = []
     detections = 0
@@ -117,9 +139,11 @@ def run(ctx) -> dict:
         latencies.append(time.perf_counter() - t)
         timings.append(dict(det.last_timings))
         detections += int(len(res["rois"]) > 0)
-        if seen[v] <= pick[v]:
-            kept[v] = (res, molded["last"])
         seen[v] += 1
+        sample = (res, molded["last"])
+        if rng.random() * seen[v] < 1.0:
+            kept[v] = sample
+        last[:] = [(v, sample)]
 
     reduction = None
     if ctx.trace:
@@ -160,21 +184,22 @@ def run(ctx) -> dict:
         torch.cuda.empty_cache()
 
     set_plain_precision()
-    if serve["weights"] == "seed":
-        ref_params = ref_weights.nest(flat)
-    else:
-        ref_params = ref_weights.load_npz(
-            os.path.join(ctx.root, serve["weights"]), device)
+    ref_params = reference_params(ctx.root, serve, flat, device)
+    judged = {v: [sample] for v, sample in kept.items()}
+    v_last, last_sample = last[0]
+    if last_sample is not kept[v_last]:
+        judged[v_last].append(last_sample)
     readings, bounds = [], {}
-    for v in sorted(kept):
-        res, outs = kept[v]
-        numbers, calls = compare.judge(ref_params, refcfg, vols[v], outs,
-                                       res, device)
-        readings.append(numbers)
-        bounds[v] = sum(harness.nms_bound_s(*c) for c in calls)
+    for v in sorted(judged):
+        ref = compare.reference(ref_params, refcfg, vols[v], device)
+        for res, outs in judged[v]:
+            readings.append(compare.judge(ref_params, refcfg, vols[v], ref,
+                                          outs, res, device))
+        bounds[v] = sum(harness.nms_bound_s(*c) for c in ref[2].nms_calls)
+        del ref
     numbers = compare.worst(readings)
     correct, compared = compare.verdict(numbers, serve["limits"])
-    if max(vols[v].shape[2] for v in kept) != max(
+    if max(vols[v].shape[2] for v in judged) != max(
             v.shape[2] for v in vols):
         correct = False  # the largest volume was not compared
 
@@ -201,6 +226,7 @@ def run(ctx) -> dict:
     else:
         lat_ms = [1e3 * t for t in latencies]
         values = {"setup_s": setup_s, "volumes_per_s": n / wall,
+                  "latency_p95_ms": harness.quantile(lat_ms, 0.95),
                   "peak_mem_gib": device_desc["memory_peak_bytes"] / 2 ** 30}
         metrics = {m["name"]: (values[m["name"]], m["unit"])
                    for m in ctx.metrics}

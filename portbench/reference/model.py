@@ -365,8 +365,7 @@ def refine(cfg, rois, roi_valid, probs, deltas, window, calls):
     """The detection layer: every proposal's box refined by its class's
     deltas (rounded molded voxels, clipped to the window) and scored; the
     candidates (foreground, confident, valid) NMS'd to at most
-    ``detection_max_instances``.  Returns (detections [Dmax, 8], kept,
-    (refined [K, 6], scores [K], candidate [K] bool))."""
+    ``detection_max_instances``.  Returns (detections [Dmax, 8], kept)."""
     class_ids = torch.argmax(probs, -1)
     scores = probs.gather(1, class_ids[:, None])[:, 0]
     sel = deltas[torch.arange(deltas.shape[0], device=deltas.device),
@@ -387,7 +386,7 @@ def refine(cfg, rois, roi_valid, probs, deltas, window, calls):
                                  torch.zeros_like(refined[idx])),
                      torch.where(kept, class_ids[idx].float(), zero)[:, None],
                      torch.where(kept, scores[idx], zero)[:, None]], 1)
-    return det, kept, (refined, scores, foreground)
+    return det, kept
 
 
 def _paste_weights(lo, hi, m, n):
@@ -460,7 +459,32 @@ class Served(NamedTuple):
     kept: torch.Tensor        # [Dmax] bool
     labels: torch.Tensor      # int8: [Dmax, 2m...] crops or [D, H, W]
     nms_calls: List[NmsCall]  # the NMS calls in graph order
-    candidates: Tuple         # (refined [K, 6], scores [K], foreground [K])
+    features: Tuple           # (p2, p3): the pyramid the classifier reads
+
+
+def pyramid_pool(cfg, p2, p3, boxes):
+    """RoIAlign of [K, 6] normalized boxes from the pyramid level their
+    size picks: [K, C, *pool_size]."""
+    size = torch.clamp(boxes[:, 3:] - boxes[:, :3], min=1e-9)
+    level = torch.clamp(torch.round(4.0 + torch.log2(
+        size[:, 0] * size[:, 1] * size[:, 2]) / 3.0), 2, 3)
+    return torch.where((level == 2)[:, None, None, None, None],
+                       roi_align(p2[0], boxes, tuple(cfg.pool_size)),
+                       roi_align(p3[0], boxes, tuple(cfg.pool_size)))
+
+
+@torch.no_grad()
+def rescore(params, cfg: RefConfig, served: Served, boxes,
+            prec="float32"):
+    """The classifier's class probabilities [K, 2] at [K, 6] molded voxel
+    boxes, pooled from the reference's own pyramid."""
+    if boxes.shape[0] == 0:
+        return torch.zeros((0, 2), device=boxes.device)
+    p2, p3 = served.features
+    pooled = pyramid_pool(cfg, p2, p3,
+                          boxes / _shape6(cfg.image_shape, boxes.device))
+    return torch.softmax(classifier(params["classifier"], pooled, prec)[0],
+                         -1)
 
 
 @torch.no_grad()
@@ -471,17 +495,12 @@ def serve(params, cfg: RefConfig, image, window, prec="float32") -> Served:
     anc = torch.from_numpy(anchors(cfg)).to(image.device)
     p2, p3, logits, deltas = trunk(params, image, prec)
     rois, valid = propose(cfg, logits[0], deltas[0], anc, calls)
-    size = torch.clamp(rois[:, 3:] - rois[:, :3], min=1e-9)
-    level = torch.clamp(torch.round(4.0 + torch.log2(
-        size[:, 0] * size[:, 1] * size[:, 2]) / 3.0), 2, 3)
-    pooled = torch.where((level == 2)[:, None, None, None, None],
-                         roi_align(p2[0], rois, tuple(cfg.pool_size)),
-                         roi_align(p3[0], rois, tuple(cfg.pool_size)))
-    del p2, p3
+    pooled = pyramid_pool(cfg, p2, p3, rois)
     logits_c, deltas_c = classifier(params["classifier"], pooled, prec)
-    det, kept, cands = refine(cfg, rois, valid, torch.softmax(logits_c, -1),
-                              deltas_c, window, calls)
+    del pooled
+    det, kept = refine(cfg, rois, valid, torch.softmax(logits_c, -1),
+                       deltas_c, window, calls)
     probs = label_probs(params, cfg, image, det, kept, prec)
     dim = 0 if uses_overlap_paste(cfg) else 1
     labels = torch.argmax(probs, dim).to(torch.int8)
-    return Served(det, kept, labels, calls, cands)
+    return Served(det, kept, labels, calls, (p2, p3))

@@ -14,6 +14,7 @@ import torch
 import tiny
 from portbench import compare, harness
 from portbench.control import readings
+from portbench.faults import planted
 from portbench.run import ROOT, main, run_cell
 
 CPU = torch.device("cpu")
@@ -69,22 +70,6 @@ def test_the_float8_control_is_not_correct(family):
     assert ok, got["program"]
 
 
-def _alter_device_labels(monkeypatch):
-    """The label volume altered where the device graph produces it."""
-    from cfun_tpu_torch.models import cfun
-
-    real = cfun.infer_forward
-
-    def broken(*args, **kwargs):
-        out = real(*args, **kwargs)
-        labels = out.mask_labels.clone()
-        flat = labels.view(-1)
-        flat[: flat.numel() // 3] = 1
-        return out._replace(mask_labels=labels)
-
-    monkeypatch.setattr(cfun, "infer_forward", broken)
-
-
 def _alter_host_labels(monkeypatch):
     """The raw-geometry label volume altered where the host unmold
     produces it."""
@@ -101,25 +86,23 @@ def _alter_host_labels(monkeypatch):
     monkeypatch.setattr(Detector, "unmold", broken)
 
 
-def _drop_detections(monkeypatch):
-    """Every detection dropped where the device graph produces them."""
-    from cfun_tpu_torch.models import cfun
-
-    real = cfun.refine_detections
-
-    def broken(*args, **kwargs):
-        det, kept = real(*args, **kwargs)
-        return torch.zeros_like(det), torch.zeros_like(kept)
-
-    monkeypatch.setattr(cfun, "refine_detections", broken)
+# each fault a family's served path can show; a partial loss needs more
+# than the heart's one detection
+FAULTS = [(family, name) for family in ("heart", "lits")
+          for name in ("device_labels", "host_labels", "drop_all",
+                       "k1_no_suppression", "k1_second_best",
+                       "drop_partial", "box_moved")
+          if not (family == "heart" and name == "drop_partial")]
 
 
-@pytest.mark.parametrize("fault", [_alter_device_labels, _alter_host_labels,
-                                   _drop_detections])
-@pytest.mark.parametrize("family", ["heart", "lits"])
+@pytest.mark.parametrize("family,fault", FAULTS)
 def test_a_broken_program_is_not_correct(bench, monkeypatch, family, fault):
-    fault(monkeypatch)
-    out = run(bench, family, SEEDS[family])
+    if fault == "host_labels":
+        _alter_host_labels(monkeypatch)
+        out = run(bench, family, SEEDS[family])
+    else:
+        with planted(fault):
+            out = run(bench, family, SEEDS[family])
     assert out["correct"] is False, out["compared"]
 
 
