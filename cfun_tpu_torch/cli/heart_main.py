@@ -71,15 +71,17 @@ def _manifest(data_dir: str):
 
 def run_test(cfg, params, data_dir: str, limit: int, save: bool,
              bbox: bool, results_dir: str = "./results", device="cuda",
-             native: bool = True):
+             native: bool = True, span_log=None):
     """Detect, score and (``save``) export the first ``limit`` manifest
-    volumes.  Returns (per-class IoU [n, C-1], per-class Dice [n, C-1])."""
+    volumes.  Returns (per-class IoU [n, C-1], per-class Dice [n, C-1]).
+    ``span_log`` (a ``SpanLog``) turns the detector's spans on."""
     from cfun_tpu_torch.data import nifti
     from cfun_tpu_torch.data.datasets import _resolve
     from cfun_tpu_torch.inference import Detector
     from cfun_tpu_torch.utils.metrics import per_class_dice, per_class_mask_iou
 
     detector = Detector(cfg, params, device=device, native=native)
+    detector.spans.log = span_log
     info = _manifest(data_dir)
 
     per_class_ious, per_class_dices = [], []
@@ -124,16 +126,19 @@ def run_test(cfg, params, data_dir: str, limit: int, save: bool,
 
 def run_submit(cfg, params, data_dir: str, limit: int,
                results_dir: str = "./results/heart_submissions",
-               device="cuda", native: bool = True) -> float:
+               device="cuda", native: bool = True,
+               span_log=None) -> float:
     """Export predicted label volumes for the first ``limit`` manifest
     images (no labels needed) -- the heart-variant counterpart of LiTS
     `submit` (the reference only ships it for LiTS, LiTS_main.py:370-394).
-    Returns the sustained seconds a volume."""
+    Returns the sustained seconds a volume.  ``span_log`` (a ``SpanLog``)
+    turns the detector's spans on."""
     from cfun_tpu_torch.data import nifti
     from cfun_tpu_torch.data.datasets import _resolve
     from cfun_tpu_torch.inference import Detector
 
     detector = Detector(cfg, params, device=device, native=native)
+    detector.spans.log = span_log
     info = _manifest(data_dir)
     os.makedirs(results_dir, exist_ok=True)
     items = info[:limit]
@@ -203,7 +208,8 @@ def main(argv=None):
                              "reference-exact numerics at latency cost")
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="capture a torch.profiler host + device trace "
-                             "into DIR (TensorBoard/Perfetto-compatible)")
+                             "into DIR (TensorBoard/Perfetto-compatible), "
+                             "with each request's stages as named spans")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu' (the kernels' "
                              "plain PyTorch versions)")
@@ -215,7 +221,7 @@ def main(argv=None):
                                     require_mesh)
     from cfun_tpu_torch.config import (exact_reference_overrides,
                                        heart_config, heart_inference_config)
-    from cfun_tpu_torch.utils.profiling import device_trace
+    from cfun_tpu_torch.utils.profiling import SpanLog, device_trace
 
     if args.command not in ("train", "test", "submit"):
         parser.error(f"'{args.command}' is not recognized. "
@@ -253,17 +259,20 @@ def main(argv=None):
     overrides = exact_reference_overrides() if args.exact else {}
     cfg = heart_inference_config(args.stage, **overrides)
     params = inference_params(cfg, args.weights)
+    # under --trace the detector's spans name each request's stages
+    span_log = SpanLog() if args.trace else None
     if args.command == "test":
         print("Testing..." + (" (exact reference mode)" if args.exact
                               else ""))
         with trace_ctx:
             return run_test(cfg, params, args.data, args.limit,
                             args.save.lower() == "true",
-                            args.bbox.lower() == "true", device=args.device)
+                            args.bbox.lower() == "true", device=args.device,
+                            span_log=span_log)
     print("Predicting...")
     with trace_ctx:
         return run_submit(cfg, params, args.data, args.limit,
-                          device=args.device)
+                          device=args.device, span_log=span_log)
 
 
 if __name__ == "__main__":

@@ -64,16 +64,18 @@ def _box_iou(a: np.ndarray, b: np.ndarray) -> float:
 
 def run_test(cfg, params, data_dir: str, limit: int, save: bool, bbox: bool,
              results_dir: str = "./results/lits", device="cuda",
-             native: bool = True):
+             native: bool = True, span_log=None):
     """Detect, score and (``save``) export every cached volume from index
     ``limit`` on.  A volume whose detection fails is reported and skipped
     (LiTS_main.py:354-356).  Returns (box IoUs, per-class IoUs), one entry
-    a volume with a detection / a volume scored."""
+    a volume with a detection / a volume scored.  ``span_log`` (a
+    ``SpanLog``) turns the detector's spans on."""
     from cfun_tpu_torch.data import nifti
     from cfun_tpu_torch.inference import Detector
     from cfun_tpu_torch.utils.metrics import per_class_mask_iou
 
     detector = Detector(cfg, params, device=device, native=native)
+    detector.spans.log = span_log
     per_class_ious, box_ious = [], []
     detect_time = 0.0
     os.makedirs(results_dir, exist_ok=True)
@@ -130,14 +132,16 @@ def run_test(cfg, params, data_dir: str, limit: int, save: bool, bbox: bool,
 
 def run_submit(cfg, params, data_dir: str, start: int = 0,
                results_dir: str = "./results/submissions", device="cuda",
-               native: bool = True) -> float:
+               native: bool = True, span_log=None) -> float:
     """Predict the 70 LiTS test volumes and export original-geometry .nii
-    (LiTS_main.py:370-394).  Returns the sustained seconds a volume."""
+    (LiTS_main.py:370-394).  Returns the sustained seconds a volume.
+    ``span_log`` (a ``SpanLog``) turns the detector's spans on."""
     from cfun_tpu_torch.data import nifti
     from cfun_tpu_torch.data.resample import resize
     from cfun_tpu_torch.inference import Detector
 
     detector = Detector(cfg, params, device=device, native=native)
+    detector.spans.log = span_log
     os.makedirs(results_dir, exist_ok=True)
     present = [i for i in range(start, 70) if os.path.exists(
         os.path.join(data_dir, "image_test_np", f"liver_{i}.npy"))]
@@ -208,7 +212,8 @@ def main(argv=None):
                              "reference-exact numerics at latency cost")
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="capture a torch.profiler host + device trace "
-                             "into DIR")
+                             "into DIR, with each request's stages as named "
+                             "spans")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu' (the kernels' "
                              "plain PyTorch versions)")
@@ -225,7 +230,7 @@ def main(argv=None):
                                     require_mesh)
     from cfun_tpu_torch.config import (exact_reference_overrides,
                                        lits_config, lits_inference_config)
-    from cfun_tpu_torch.utils.profiling import device_trace
+    from cfun_tpu_torch.utils.profiling import SpanLog, device_trace
 
     if args.command not in ("train", "test", "submit"):
         parser.error(f"'{args.command}' is not recognized.")
@@ -255,15 +260,19 @@ def main(argv=None):
     overrides = exact_reference_overrides() if args.exact else {}
     cfg = lits_inference_config(args.stage, **overrides)
     params = inference_params(cfg, args.weights)
+    # under --trace the detector's spans name each request's stages
+    span_log = SpanLog() if args.trace else None
     if args.command == "test":
         print("Testing..." + (" (exact reference mode)" if args.exact else ""))
         with trace_ctx:
             return run_test(cfg, params, args.data, args.limit,
                             args.save.lower() == "true",
-                            args.bbox.lower() == "true", device=args.device)
+                            args.bbox.lower() == "true", device=args.device,
+                            span_log=span_log)
     print("Predicting...")
     with trace_ctx:
-        return run_submit(cfg, params, args.data, device=args.device)
+        return run_submit(cfg, params, args.data, device=args.device,
+                          span_log=span_log)
 
 
 if __name__ == "__main__":

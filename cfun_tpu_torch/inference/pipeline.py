@@ -7,6 +7,15 @@ Output dict, as in the JAX package (reference model.py:1341-1389):
   scores    [N]
   mask      [H, W, D] int16 label volume at the original resolution
 
+Each request is timed in spans (``utils/profiling.py``) under an id the
+detector issues: ``mold`` (counting the wire's bytes up), ``dispatch``
+(the enqueue of the graph and of its outputs' copy; bytes down), ``wait``
+(the host blocked on the outputs' event) and ``finish``, inside it
+``unpack`` and ``paste``.  Only ``mold``, ``dispatch`` and ``finish``
+enclose kernel launches or copies; a profiler's device time leaves out
+their marks by those names.  ``last_timings``, ``last_sub_timings`` and
+``last_wire_bytes`` are views of the last finished request's spans.
+
 The host work is the port's native ops (``native.py``, C++ with OpenMP),
 as the JAX detector serves: on the packed int8 path the mold resizes and
 quantizes z-slabs into page-locked buffers and uploads each one
@@ -23,7 +32,7 @@ label volume back to the raw geometry (LiTS, or more than one instance).
 from __future__ import annotations
 
 import collections
-import time
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional
 
@@ -39,6 +48,7 @@ from cfun_tpu_torch.data.resample import (resize, unmold_mask_labels,
                                           unmold_overlap_labels)
 from cfun_tpu_torch.models import cfun
 from cfun_tpu_torch.ops.anchors import config_anchors
+from cfun_tpu_torch.utils.profiling import Span, SpanRecorder
 from cfun_tpu_torch.weights import to_device
 
 CLIP_SIGMA = 5.0  # the int8 wire clips the z-scored volume at +-5 sigma
@@ -51,6 +61,16 @@ class _Pending(NamedTuple):
     host: List[torch.Tensor]
     event: Optional[torch.cuda.Event]
     down_bytes: int
+
+
+class _Request:
+    """One request's id and its closed spans, by name."""
+
+    __slots__ = ("id", "spans")
+
+    def __init__(self, request_id: int):
+        self.id = request_id
+        self.spans: Dict[str, Span] = {}
 
 
 class Detector:
@@ -70,7 +90,11 @@ class Detector:
     the same way, from a page-locked buffer of its own.  Each request's
     output is copied into a page-locked buffer of its own (PyTorch's
     caching host allocator hands it out again only after that copy has
-    run), followed by an event that ``_finish`` waits on.
+    run), followed by an event that the ``wait`` stage waits on.
+
+    ``spans.log = SpanLog()`` turns the span log on: every stage's span
+    is kept there, with its thread and enclosing span, and opens a
+    ``record_function`` range of its name for a profiler.
     """
 
     def __init__(self, cfg: Config, params, device="cuda",
@@ -114,12 +138,17 @@ class Detector:
         self._slab_bufs: List[torch.Tensor] = []
         self._slab_events: List[torch.cuda.Event] = []
         self._dispatch_thread: Optional[ThreadPoolExecutor] = None
+        self.spans = SpanRecorder()
+        self._request_ids = itertools.count(1)
+        # views of the last finished request's spans (``_publish``): its
+        # id; "mold", "device" (dispatch + wait), "unmold" (finish) and
+        # "total" seconds; the 'unmold' bucket's parts, "fetch" (finish
+        # until the unpack: a wait for the output not yet waited on),
+        # "unpack", "paste"; the bytes that crossed to the device ("up")
+        # and back ("down")
+        self.last_request: Optional[int] = None
         self.last_timings: Dict[str, float] = {}
-        # the 'unmold' bucket's parts: "fetch" (wait for the output on the
-        # host), "unpack", "paste"
         self.last_sub_timings: Dict[str, float] = {}
-        # bytes of the last detect() that crossed to the device ("up") and
-        # back ("down")
         self.last_wire_bytes: Dict[str, int] = {}
 
     def _wire_dtype(self) -> torch.dtype:
@@ -341,41 +370,83 @@ class Detector:
         event.record(torch.cuda.current_stream(self.device))
         return _Pending(host, event, down)
 
-    def _finish(self, pending: _Pending, orig_shape_hwd,
-                window: np.ndarray) -> Dict[str, np.ndarray]:
-        """Wait for the outputs on the host, unpack and unmold them."""
-        t0 = time.perf_counter()
-        if pending.event is not None:
-            pending.event.synchronize()
-        t1 = time.perf_counter()
-        if self._packed:
-            detections, kept, masks = cfun.unpack_fast_output(
-                pending.host[0].numpy(), self.cfg.detection_max_instances,
-                self.labels_shape, bits=self.pack_bits)
-        else:
-            detections, kept, masks = (t.numpy() for t in pending.host)
-            if masks.dtype != np.int8:  # the probability stack
-                masks = masks.astype(np.float32)
-        self.last_sub_timings = {"fetch": t1 - t0,
-                                 "unpack": time.perf_counter() - t1}
-        return self.unmold(detections, kept, masks, orig_shape_hwd, window)
+    def _mold(self, req: _Request, image_hwd: np.ndarray):
+        """``mold`` as the request's ``mold`` span, which counts the
+        wire's bytes ("up")."""
+        with self.spans.span("mold", req.id) as span:
+            wire, window, orig_shape = self.mold(image_hwd)
+            span.counts["up"] = wire.numel() * wire.element_size()
+        req.spans["mold"] = span
+        return wire, window, orig_shape
+
+    def _enqueue(self, req: _Request, stream: Optional[torch.cuda.Stream],
+                 wire, window) -> _Pending:
+        """``_dispatch_on`` as the request's ``dispatch`` span, which
+        counts the outputs' bytes ("down")."""
+        with self.spans.span("dispatch", req.id) as span:
+            pending = self._dispatch_on(stream, wire, window)
+            span.counts["down"] = pending.down_bytes
+        req.spans["dispatch"] = span
+        return pending
+
+    def _wait(self, req: _Request, pending: _Pending) -> None:
+        """Block until the outputs are on the host: the request's ``wait``
+        span."""
+        with self.spans.span("wait", req.id) as span:
+            if pending.event is not None:
+                pending.event.synchronize()
+        req.spans["wait"] = span
+
+    def _finish(self, pending: _Pending, orig_shape_hwd, window: np.ndarray,
+                req: _Request) -> Dict[str, np.ndarray]:
+        """Unpack and unmold the outputs on the host: the request's
+        ``finish`` span, ``unpack`` and ``paste`` in it.  Its own wait for
+        the outputs returns at once after ``_wait``."""
+        span = self.spans.span
+        with span("finish", req.id) as finish:
+            if pending.event is not None:
+                pending.event.synchronize()
+            # .numpy() runs torch ops: outside the leaves, which run none
+            host = [t.numpy() for t in pending.host]
+            with span("unpack", req.id) as unpack:
+                if self._packed:
+                    detections, kept, masks = cfun.unpack_fast_output(
+                        host[0], self.cfg.detection_max_instances,
+                        self.labels_shape, bits=self.pack_bits)
+                else:
+                    detections, kept, masks = host
+                    if masks.dtype != np.int8:  # the probability stack
+                        masks = masks.astype(np.float32)
+            with span("paste", req.id) as paste:
+                result = self.unmold(detections, kept, masks,
+                                     orig_shape_hwd, window)
+        req.spans.update(finish=finish, unpack=unpack, paste=paste)
+        return result
+
+    def _publish(self, req: _Request) -> None:
+        """Point the ``last_*`` views at a finished request's spans."""
+        s = req.spans
+        self.last_request = req.id
+        self.last_timings = {
+            "mold": s["mold"].seconds,
+            "device": s["dispatch"].seconds + s["wait"].seconds,
+            "unmold": s["finish"].seconds,
+            "total": (s["finish"].end_ns - s["mold"].start_ns) * 1e-9}
+        self.last_sub_timings = {
+            "fetch": (s["unpack"].start_ns - s["finish"].start_ns) * 1e-9,
+            "unpack": s["unpack"].seconds, "paste": s["paste"].seconds}
+        self.last_wire_bytes = {"up": s["mold"].counts["up"],
+                                "down": s["dispatch"].counts["down"]}
 
     def detect(self, image_hwd: np.ndarray,
                timings: Optional[dict] = None) -> Dict[str, np.ndarray]:
         """image_hwd: [H, W, D] or [H, W, D, 1] raw volume."""
-        t0 = time.perf_counter()
-        wire, window, orig_shape = self.mold(image_hwd)
-        t1 = time.perf_counter()
-        pending = self._dispatch(wire, window)
-        if pending.event is not None:
-            pending.event.synchronize()  # the fetch is in 'device'
-        t2 = time.perf_counter()
-        self.last_wire_bytes = {"up": wire.numel() * wire.element_size(),
-                                "down": pending.down_bytes}
-        result = self._finish(pending, orig_shape, window)
-        t3 = time.perf_counter()
-        self.last_timings = {"mold": t1 - t0, "device": t2 - t1,
-                             "unmold": t3 - t2, "total": t3 - t0}
+        req = _Request(next(self._request_ids))
+        wire, window, orig_shape = self._mold(req, image_hwd)
+        pending = self._enqueue(req, None, wire, window)
+        self._wait(req, pending)
+        result = self._finish(pending, orig_shape, window, req)
+        self._publish(req)
         if timings is not None:
             timings.update(self.last_timings)
         return result
@@ -386,7 +457,8 @@ class Detector:
         the host mold of volume N+1 (this thread), the device work of
         volume N and the fetch + unmold of volume N (a worker thread,
         which waits on the output's event).  At most two volumes are in
-        flight.
+        flight.  When a result is yielded, the ``last_*`` views describe
+        its request.
 
         The device work is enqueued by the detector's dispatch thread, on
         this thread's current stream: PyTorch launches each kernel from
@@ -397,21 +469,32 @@ class Detector:
         stream = self._current_stream()
         dispatcher = self._dispatcher()
 
-        def finish(dispatched, orig_shape, window):
-            return self._finish(dispatched.result(), orig_shape, window)
+        def finish(req, dispatched, orig_shape, window):
+            pending = dispatched.result()
+            self._wait(req, pending)
+            return self._finish(pending, orig_shape, window, req), req
 
         pending = collections.deque()  # FIFO of finish futures
-        with ThreadPoolExecutor(max_workers=1) as finisher:
+
+        def done():
+            result, req = pending.popleft().result()
+            self._publish(req)
+            return result
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="detector-finish"
+                                ) as finisher:
             for vol in volumes:
-                wire, window, orig_shape = self.mold(vol)
-                dispatched = dispatcher.submit(self._dispatch_on, stream,
+                req = _Request(next(self._request_ids))
+                wire, window, orig_shape = self._mold(req, vol)
+                dispatched = dispatcher.submit(self._enqueue, req, stream,
                                                wire, window)
-                pending.append(finisher.submit(finish, dispatched,
+                pending.append(finisher.submit(finish, req, dispatched,
                                                orig_shape, window))
                 if len(pending) > 1:
-                    yield pending.popleft().result()
+                    yield done()
             while pending:
-                yield pending.popleft().result()
+                yield done()
 
     def _molded_labels_to_original(self, labels_molded: np.ndarray,
                                    orig_shape_hwd) -> np.ndarray:
@@ -477,10 +560,8 @@ class Detector:
         boxes, scores = boxes[good], scores[good]
 
         if mask_data.ndim == 3:  # the overlap paste's molded labels
-            tp = time.perf_counter()
             full_hwd = self._molded_labels_to_original(mask_data,
                                                        orig_shape_hwd)
-            self.last_sub_timings["paste"] = time.perf_counter() - tp
             boxes = np.clip(boxes, 0, np.array([d0, h0, w0, d0, h0, w0]))
             return {
                 "rois": boxes[:, [1, 2, 0, 4, 5, 3]],
@@ -490,7 +571,6 @@ class Detector:
             }
 
         masks = mask_data[:n][good]
-        tp = time.perf_counter()
         if boxes.shape[0] > 0:
             boxes = np.clip(boxes, 0, np.array([d0, h0, w0, d0, h0, w0]))
             if masks.ndim == 4:  # [N, d, h, w] int8 labels
@@ -504,7 +584,6 @@ class Detector:
                 full = unmold_mask_labels(masks[0], boxes[0], (d0, h0, w0))
         else:
             full = np.zeros((d0, h0, w0), np.int16)
-        self.last_sub_timings["paste"] = time.perf_counter() - tp
 
         # (z, y, x) -> (y, x, z) box order; [D, H, W] -> [H, W, D] volume
         return {

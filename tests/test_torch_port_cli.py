@@ -247,8 +247,9 @@ def test_exact_flag_reaches_config(monkeypatch, heart_root, family):
     mod = pheart if family == "heart" else plits
     seen = {}
 
-    def fake_run_test(cfg, params, data_dir, limit, save, bbox, device):
-        seen.update(cfg=cfg, device=device, limit=limit)
+    def fake_run_test(cfg, params, data_dir, limit, save, bbox, device,
+                      span_log):
+        seen.update(cfg=cfg, device=device, limit=limit, span_log=span_log)
 
     monkeypatch.setattr(mod, "run_test", fake_run_test)
     # the parameters are unused by the fake; skip the full-size init
@@ -266,6 +267,7 @@ def test_exact_flag_reaches_config(monkeypatch, heart_root, family):
     cfg = seen["cfg"]
     assert cfg.wire_image_dtype == "int8" and cfg.fast_unmold is True
     assert seen["limit"] == (5 if family == "heart" else 111)
+    assert seen["span_log"] is None  # no --trace: the spans only time
     if family == "lits":
         assert cfg.wire_int8_scale == 127.0
     else:
@@ -454,18 +456,28 @@ def test_draw_bbox_wireframe_matches_jax():
 
 def test_device_trace_names_annotated_region(tmp_path):
     """``device_trace`` on the CPU writes a Chrome/Perfetto trace that
-    names a region opened with ``annotate`` and the ops inside it."""
-    import torch
+    names each stage of a detector's request (its spans, on with a span
+    log, as the CLIs' ``--trace`` runs it) and the ops inside them."""
+    import json
 
-    from cfun_tpu_torch.utils.profiling import annotate, device_trace
+    from cfun_tpu_torch.inference import Detector
+    from cfun_tpu_torch.utils.profiling import SpanLog, device_trace
 
+    cfg = pconfig.tiny_config(detection_max_instances=1)
+    det = Detector(cfg, weights.init_params(cfg, seed=0), device="cpu",
+                   native=False)
+    det.spans.log = SpanLog()
+    vol = np.random.default_rng(0).normal(size=(48, 48, 20))
     with device_trace(str(tmp_path)):
-        with annotate("cli_region"):
-            torch.ones(8, 8).matmul(torch.ones(8, 8))
+        det.detect(vol.astype(np.float32))
     files = glob.glob(str(tmp_path / "*.pt.trace.json"))
     assert len(files) == 1
-    text = open(files[0]).read()
-    assert "cli_region" in text and "aten::matmul" in text
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"mold", "dispatch", "wait", "finish", "unpack",
+            "paste"} <= ranges
+    assert any(e.get("name") == "aten::conv3d" for e in events)
 
 
 def test_import_scan_covers_the_slice():
