@@ -20,7 +20,8 @@
 //     pasted into a [D0,H0,W0] volume inside an integer box, sampling
 //     trilinearly at every output voxel and taking the channel argmax
 //     in-register.
-//   unmold_labels_box_i16: nearest paste of an int8 label crop into a box.
+//   unmold_labels_box_i16: nearest paste of an int8 label crop into a box,
+//     writing the whole raw-size volume (zeros outside the box).
 //
 // and of LiTS serving:
 //
@@ -323,11 +324,19 @@ void mold_resize_slab_q8(const float* src, int h0, int w0, int d0,
 // Nearest box-paste for the heart fast path's int8 label crop
 // (inference/pipeline.py::unmold labels branch, reference
 // model.py:1856-1858): out[z1+z, y1+y, x1+x] = lab[cz[z], cy[y], cx[x]]
-// as int16 into a caller-zeroed [D0, H0, W0] volume -- only the box
-// region is touched.  Replaces the numpy resize-then-paste (three
-// axis-take copies + an int16 convert-store over the box) with one
-// run-length pass; the index maps come from the caller so the nearest
-// convention is exactly data/resample.py::_axis_indices(order=0).
+// inside the box and 0 everywhere else, as int16 [D0, H0, W0].  Every
+// voxel of the volume is written once, so the caller hands in memory as
+// it comes (np.empty): zeroing a 93-190 MB volume first (np.zeros, a
+// one-thread memset of a reused heap block) cost more than the paste.
+// The index maps come from the caller so the nearest convention is
+// exactly data/resample.py::_axis_indices(order=0).
+//
+// Each thread writes a contiguous range of planes: a plane outside the
+// box is zeros; one inside is zero rows around rows of [0, x1) zeros, the
+// gathered labels and zeros to W0.  A distinct (cz, cy) source row is
+// gathered once; a repeated row or plane is a memcpy of the one this
+// thread wrote just before it.
+//
 // The box must start inside the volume: a clipped box that starts at the
 // extent (z1 == d0, y1 == h0 or x1 == w0) keeps a target extent of 1 and
 // would write one plane past the end, so such a box writes nothing here
@@ -340,17 +349,11 @@ void unmold_labels_box_i16(const int8_t* lab, int md, int mh, int mw,
   (void)md;
   if (z1 < 0 || y1 < 0 || x1 < 0 || z1 >= d0 || y1 >= h0 || x1 >= w0)
     return;
-  // x runs (innermost / contiguous output axis)
-  std::vector<int32_t> rstart, rcount, rsrc;
-  for (int x = 0; x < tw;) {
-    int x2 = x + 1;
-    while (x2 < tw && cx[x2] == cx[x]) ++x2;
-    rstart.push_back(x);
-    rcount.push_back(x2 - x);
-    rsrc.push_back(cx[x]);
-    x = x2;
-  }
-  const int nruns = static_cast<int>(rstart.size());
+  const int zb = std::min(td, d0 - z1);
+  const int yb = std::min(th, h0 - y1);
+  const int xb = std::min(tw, w0 - x1);
+  const int64_t plane = static_cast<int64_t>(h0) * w0;
+  const size_t row_bytes = static_cast<size_t>(w0) * sizeof(int16_t);
 #pragma omp parallel
   {
 #if defined(_OPENMP)
@@ -360,40 +363,43 @@ void unmold_labels_box_i16(const int8_t* lab, int md, int mh, int mw,
     const int tid = 0;
     const int nt = 1;
 #endif
-    const int zlo = static_cast<int>(static_cast<int64_t>(td) * tid / nt);
-    const int zhi = static_cast<int>(static_cast<int64_t>(td) * (tid + 1)
+    const int zlo = static_cast<int>(static_cast<int64_t>(d0) * tid / nt);
+    const int zhi = static_cast<int>(static_cast<int64_t>(d0) * (tid + 1)
                                      / nt);
-    int prev_sz = -1;
+    int prev_sz = -1;  // source plane of this thread's last plane, if boxed
     for (int z = zlo; z < zhi; ++z) {
-      const int sz = cz[z];
-      int16_t* oplane = out +
-          ((static_cast<int64_t>(z1) + z) * h0 + y1) * w0 + x1;
+      int16_t* oplane = out + z * plane;
+      const int bz = z - z1;
+      if (bz < 0 || bz >= zb) {
+        std::memset(oplane, 0, plane * sizeof(int16_t));
+        prev_sz = -1;
+        continue;
+      }
+      const int sz = cz[bz];
       if (sz == prev_sz) {
-        const int16_t* prev = oplane - static_cast<int64_t>(h0) * w0;
-        for (int y = 0; y < th; ++y)
-          std::memcpy(oplane + static_cast<int64_t>(y) * w0,
-                      prev + static_cast<int64_t>(y) * w0,
-                      static_cast<size_t>(tw) * sizeof(int16_t));
+        std::memcpy(oplane, oplane - plane, plane * sizeof(int16_t));
         continue;
       }
       prev_sz = sz;
+      std::memset(oplane, 0, static_cast<size_t>(y1) * row_bytes);
+      const int8_t* splane = lab + static_cast<int64_t>(sz) * mh * mw;
       int prev_sy = -1;
-      int16_t* prow = nullptr;
-      for (int y = 0; y < th; ++y) {
+      for (int y = 0; y < yb; ++y) {
+        int16_t* orow = oplane + static_cast<int64_t>(y1 + y) * w0;
         const int sy = cy[y];
-        int16_t* orow = oplane + static_cast<int64_t>(y) * w0;
         if (sy == prev_sy) {
-          std::memcpy(orow, prow, static_cast<size_t>(tw) * sizeof(int16_t));
+          std::memcpy(orow, orow - w0, row_bytes);
           continue;
         }
         prev_sy = sy;
-        prow = orow;
-        const int8_t* src = lab + (static_cast<int64_t>(sz) * mh + sy) * mw;
-        for (int r = 0; r < nruns; ++r) {
-          const int16_t v = static_cast<int16_t>(src[rsrc[r]]);
-          std::fill_n(orow + rstart[r], rcount[r], v);
-        }
+        const int8_t* src = splane + static_cast<int64_t>(sy) * mw;
+        std::fill_n(orow, x1, int16_t{0});
+        int16_t* o = orow + x1;
+        for (int x = 0; x < xb; ++x) o[x] = static_cast<int16_t>(src[cx[x]]);
+        std::fill(o + xb, orow + w0, int16_t{0});
       }
+      std::memset(oplane + static_cast<int64_t>(y1 + yb) * w0, 0,
+                  static_cast<size_t>(h0 - y1 - yb) * row_bytes);
     }
   }
 }

@@ -150,6 +150,7 @@ class Detector:
         self.last_timings: Dict[str, float] = {}
         self.last_sub_timings: Dict[str, float] = {}
         self.last_wire_bytes: Dict[str, int] = {}
+        self._filled = 0  # bytes of the last native box paste (_finish)
 
     def _wire_dtype(self) -> torch.dtype:
         return torch.int8 if self.cfg.wire_image_dtype == "int8" \
@@ -417,9 +418,12 @@ class Detector:
                     detections, kept, masks = host
                     if masks.dtype != np.int8:  # the probability stack
                         masks = masks.astype(np.float32)
+            # "filled": the bytes the native box paste wrote (0 if none)
             with span("paste", req.id) as paste:
+                self._filled = 0
                 result = self.unmold(detections, kept, masks,
                                      orig_shape_hwd, window)
+                paste.counts["filled"] = self._filled
         req.spans.update(finish=finish, unpack=unpack, paste=paste)
         return result
 
@@ -595,10 +599,15 @@ class Detector:
 
     def _paste_labels(self, labels: np.ndarray, box,
                       shape_dhw) -> np.ndarray:
-        """Nearest paste of an int8 label crop into its clipped box of a
-        zeroed int16 volume."""
+        """Nearest paste of an int8 label crop into its clipped box of an
+        int16 volume, zero elsewhere.  The native pass writes the whole
+        volume, and ``_filled`` records its bytes (a box past the edge
+        pastes nothing)."""
         if self.native:
-            return native_ops.unmold_labels_box(labels, box, shape_dhw)
+            full = native_ops.unmold_labels_box(labels, box, shape_dhw)
+            if all(b < n for b, n in zip(box[:3], shape_dhw)):
+                self._filled = full.nbytes
+            return full
         full = np.zeros(shape_dhw, np.int16)
         z1, y1, x1, z2, y2, x2 = box
         target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))

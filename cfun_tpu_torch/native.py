@@ -197,28 +197,38 @@ def _nearest(n_in: int, n_out: int) -> np.ndarray:
     return np.floor(s + 0.5).astype(np.int32)
 
 
-def unmold_labels_box(lab_dhw: np.ndarray, box, out_shape_dhw
-                      ) -> np.ndarray:
+def unmold_labels_box(lab_dhw: np.ndarray, box, out_shape_dhw,
+                      out: Optional[np.ndarray] = None) -> np.ndarray:
     """Nearest-resize an int8 [md, mh, mw] label crop into the integer
-    ``box`` (z1, y1, x1, z2, y2, x2; clipped to the volume) of a zeroed
-    int16 [D0, H0, W0] volume: ``resize(lab, target, order=0)`` pasted at
-    the box, target ``max(z2 - z1, 1)`` a side.
+    ``box`` (z1, y1, x1, z2, y2, x2; clipped to the volume) of an int16
+    [D0, H0, W0] volume that is zero elsewhere: ``resize(lab, target,
+    order=0)`` pasted at the box, target ``max(z2 - z1, 1)`` a side.
+    One parallel native pass writes every voxel, so the volume needs no
+    zeroing first; written into ``out`` (int16 C-contiguous [D0, H0, W0],
+    whatever it holds) when given; returns it.
 
     A box that starts at the volume's extent (``z1 >= D0``, ``y1 >= H0``
     or ``x1 >= W0``: a clipped box past the edge) pastes nothing, as the
-    NumPy slice paste does: the zeroed volume comes back without a call,
+    NumPy slice paste does: the zero volume comes back without a call,
     since the target of 1 would write past the end."""
     lab = np.ascontiguousarray(lab_dhw, np.int8)
     if lab.ndim != 3 or min(lab.shape) < 1:
         raise ValueError(f"labels must be a non-empty [d, h, w] crop, got "
                          f"{lab.shape}")
     md, mh, mw = lab.shape
-    d0, h0, w0 = (int(v) for v in out_shape_dhw)
+    shape = tuple(int(v) for v in out_shape_dhw)
+    d0, h0, w0 = shape
     z1, y1, x1, z2, y2, x2 = (int(v) for v in box)
-    out = np.zeros((d0, h0, w0), np.int16)
     if min(z1, y1, x1) < 0 or z2 > d0 or y2 > h0 or x2 > w0:
-        raise ValueError(f"box {list(box)} is not clipped to {out.shape}")
+        raise ValueError(f"box {list(box)} is not clipped to {shape}")
+    if out is None:
+        out = np.empty(shape, np.int16)
+    elif (out.shape != shape or out.dtype != np.int16
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be int16 C-contiguous {shape}, got "
+                         f"{out.dtype} {out.shape}")
     if z1 >= d0 or y1 >= h0 or x1 >= w0:
+        out.fill(0)
         return out
     td, th, tw = max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1)
     library().unmold_labels_box_i16(

@@ -195,6 +195,59 @@ def test_unmold_labels_box_guard(box, monkeypatch):
     assert np.all(out == sentinel), "wrote inside the volume"
 
 
+# (volume [D0, H0, W0], crop [md, mh, mw], box): boxes on each face in
+# turn, the whole volume, targets of one voxel along each axis, widths off
+# multiples of 16 / 32 / 64, fewer planes than threads, and axes both up-
+# and downscaled
+PASTES = [
+    ((40, 64, 64), (24, 24, 24), [0, 5, 7, 20, 30, 33]),
+    ((40, 64, 64), (24, 24, 24), [21, 5, 7, 40, 30, 33]),
+    ((40, 64, 64), (24, 24, 24), [3, 0, 7, 20, 30, 33]),
+    ((40, 64, 64), (24, 24, 24), [3, 29, 7, 20, 64, 33]),
+    ((40, 64, 64), (24, 24, 24), [3, 5, 0, 20, 30, 33]),
+    ((40, 64, 64), (24, 24, 24), [3, 5, 31, 20, 30, 64]),
+    ((21, 37, 53), (24, 24, 24), [0, 0, 0, 21, 37, 53]),
+    ((17, 29, 71), (9, 12, 13), [6, 3, 5, 6, 19, 70]),
+    ((17, 29, 71), (9, 12, 13), [2, 11, 5, 15, 11, 70]),
+    ((17, 29, 71), (9, 12, 13), [2, 3, 40, 15, 19, 40]),
+    ((3, 45, 99), (5, 30, 31), [0, 4, 3, 3, 41, 98]),
+    ((33, 47, 83), (7, 90, 40), [1, 2, 3, 32, 21, 80]),
+]
+
+
+@pytest.mark.parametrize("shape,crop_shape,box", PASTES,
+                         ids=[f"{s}-{c}-{b}" for s, c, b in PASTES])
+def test_unmold_labels_box_writes_every_voxel(shape, crop_shape, box):
+    """Into memory that holds anything (``out=``), the paste writes the
+    whole volume: equal to the NumPy paste (``np.zeros`` + ``resize(order
+    =0)``) and to the JAX package's paste into its zeroed volume."""
+    crop = np.random.default_rng(11).integers(1, 8, size=crop_shape,
+                                              dtype=np.int8)
+    out = np.full(shape, 0x5A5A, np.int16)
+    got = native.unmold_labels_box(crop, box, shape, out=out)
+    assert got is out
+    z1, y1, x1, z2, y2, x2 = box
+    target = (max(z2 - z1, 1), max(y2 - y1, 1), max(x2 - x1, 1))
+    ref = np.zeros(shape, np.int16)
+    ref[z1:z1 + target[0], y1:y1 + target[1],
+        x1:x1 + target[2]] = resize(crop, target, order=0)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, jnative.unmold_labels_box(crop, box,
+                                                                 shape))
+
+
+def test_unmold_labels_box_checks_out_and_zeroes_it_past_the_edge():
+    crop = np.ones((4, 4, 4), np.int8)
+    shape = (40, 64, 64)
+    for bad in (np.empty((40, 64, 63), np.int16), np.empty(shape, np.int32),
+                np.empty((64, 64, 40), np.int16).transpose(2, 0, 1)):
+        with pytest.raises(ValueError, match="out must be int16"):
+            native.unmold_labels_box(crop, [0, 0, 0, 8, 8, 8], shape, out=bad)
+    out = np.full(shape, 3, np.int16)
+    got = native.unmold_labels_box(crop, [40, 5, 5, 40, 9, 9], shape, out=out)
+    assert got is out and not got.any()
+
+
 def test_unmold_labels_box_rejects_unclipped_boxes():
     crop = np.zeros((4, 4, 4), np.int8)
     with pytest.raises(ValueError, match="not clipped"):

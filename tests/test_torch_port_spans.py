@@ -8,13 +8,15 @@ views; ``detect_stream`` gives each request its own increasing id, its
 ``dispatch`` on the dispatch thread and its ``wait`` and ``finish`` on the
 finisher thread, and its views as each result is yielded; under
 ``torch.profiler`` the spans are ``record_function`` ranges and no
-``aten::`` op runs inside a leaf span."""
+``aten::`` op runs inside a leaf span; ``paste`` counts the bytes the
+native box paste wrote ("filled"), 0 on the NumPy route."""
 
 import threading
 
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
+from cfun_tpu_torch.inference import Detector
 from cfun_tpu_torch.utils.profiling import SpanLog, SpanRecorder
 from tests.test_torch_port_stream import _volumes, detector  # noqa: F401
 
@@ -131,6 +133,25 @@ def test_spans_are_profiler_ranges_and_leaves_enclose_no_op(logged):
     assert inside(ranges["dispatch"][0])  # the ops the graph enqueued
     for name in LEAVES:
         assert inside(ranges[name][0]) == [], name
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_paste_counts_the_bytes_the_native_pass_filled(detector,  # noqa: F811
+                                                       native):
+    det = detector if native else Detector(
+        detector.cfg, detector.params, device="cpu", native=False)
+    det.spans.log = SpanLog()
+    try:
+        result = det.detect(_volumes()[0])
+        pastes = [s for s in det.spans.log.take() if s.name == "paste"]
+    finally:
+        det.spans.log = None
+        if det is not detector:
+            det.close()
+    assert len(result["scores"]) >= 1  # a box to paste into
+    assert len(pastes) == 1
+    assert pastes[0].counts == {
+        "filled": result["mask"].nbytes if native else 0}
 
 
 def test_the_log_is_bounded_and_an_unlogged_span_only_times():
