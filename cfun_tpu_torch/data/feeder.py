@@ -30,7 +30,6 @@ a resumed run substitutes as the uninterrupted one did.
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
@@ -42,6 +41,7 @@ from cfun_tpu_torch import native
 from cfun_tpu_torch.config import Config
 from cfun_tpu_torch.data.mold import normalize_intensity, pad_offsets
 from cfun_tpu_torch.data.resample import rotate_hw
+from cfun_tpu_torch.utils.profiling import SpanRecorder
 
 
 def np_mask_to_extended_bbox(labels_dhw: np.ndarray, frac: float = 0.05
@@ -114,13 +114,16 @@ class TrainFeeder:
 
     ``shard_index`` / ``num_shards``: each of several processes builds
     the feeder with the same seed and its own index, and takes a strided
-    slice of one global plan.  ``item_times`` holds each finished item's
-    host seconds by part (load, mold, labels, rpn, total);
-    ``pop_times`` takes them."""
+    slice of one global plan.  Each item is timed on its worker thread in
+    ``spans`` (``utils/profiling.py``): an ``item`` span under the image
+    id, with ``load``, ``mold``, ``labels`` and ``rpn`` in it;
+    ``item_times`` holds each finished item's host seconds by part (those
+    four, and ``total``, the item's), and ``pop_times`` takes them."""
 
     def __init__(self, dataset, cfg: Config, anchors: np.ndarray,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 8,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: int = 0, num_shards: int = 1,
+                 spans: Optional[SpanRecorder] = None):
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard {shard_index} of {num_shards}")
         if cfg.pad_shape is not None and cfg.intensity_norm != "hu_window":
@@ -142,6 +145,7 @@ class TrainFeeder:
         # are kept across epochs (on the host; the training loop keeps the
         # device copies of cfg.device_mold_cache)
         self._mold_cache: Dict[int, object] = {}
+        self.spans = spans or SpanRecorder()
         self.item_times: List[Dict[str, float]] = []
 
     def pop_times(self) -> List[Dict[str, float]]:
@@ -168,8 +172,13 @@ class TrainFeeder:
         return (ids[self.shard_index::self.num_shards],
                 seeds[self.shard_index::self.num_shards])
 
-    def _record(self, t0: float, marks: Dict[str, float]) -> None:
-        marks["total"] = time.perf_counter() - t0
+    def _record(self, item, parts) -> None:
+        """Keep a finished item's seconds: its ``item`` span's and each of
+        ``parts``' (spans in it, summed by name)."""
+        marks = {"load": 0.0, "mold": 0.0, "labels": 0.0, "rpn": 0.0}
+        for part in parts:
+            marks[part.name] += part.seconds
+        marks["total"] = item.seconds
         with self._lock:
             self.item_times.append(marks)
 
@@ -191,35 +200,38 @@ class TrainFeeder:
             cached = self._mold_cache.get(image_id)
         if cached is not None:
             return cached
-        t0 = time.perf_counter()
-        image = self.dataset.load_image(image_id)
-        mask = self.dataset.load_mask(image_id)
-        img = image[..., 0] if image.ndim == 4 else image
-        t1 = time.perf_counter()
-        molded = native.mold_resize(img, cfg.image_shape, normalize=False)
-        t2 = time.perf_counter()
-        labels = native.pad_nearest_labels(mask, mask.shape[:3],
-                                           cfg.image_shape, (0, 0, 0))
-        t3 = time.perf_counter()
-        m = float(molded.mean())
-        s = float(molded.std()) or 1.0
-        y = (molded.astype(np.float32) - m) / s
-        fill = np.float32((0.0 - m) / s)
-        if cfg.train_wire_int8:
-            image_out = torch.from_numpy(
-                (np.clip(y, -5.0, 5.0) * cfg.wire_int8_scale).astype(np.int8))
-            fill = np.float32(np.clip(fill, -5.0, 5.0))
-        elif cfg.compute_dtype == "bfloat16":
-            image_out = torch.from_numpy(y).to(torch.bfloat16)
-        else:
-            image_out = torch.from_numpy(y)
-        item = AugTrainBatch(image=image_out[None, None],
-                             labels=_labels_tensor(labels, cfg),
-                             angle=0.0, fill=float(fill))
-        with self._lock:
-            self._mold_cache[image_id] = item
-        self._record(t0, {"load": t1 - t0, "mold": t2 - t1 + (
-            time.perf_counter() - t3), "labels": t3 - t2, "rpn": 0.0})
+        span = self.spans.span
+        with span("item", image_id) as whole:
+            with span("load", image_id) as load:
+                image = self.dataset.load_image(image_id)
+                mask = self.dataset.load_mask(image_id)
+                img = image[..., 0] if image.ndim == 4 else image
+            with span("labels", image_id) as lab:
+                labels = native.pad_nearest_labels(mask, mask.shape[:3],
+                                                   cfg.image_shape,
+                                                   (0, 0, 0))
+            with span("mold", image_id) as mold:
+                molded = native.mold_resize(img, cfg.image_shape,
+                                            normalize=False)
+                m = float(molded.mean())
+                s = float(molded.std()) or 1.0
+                y = (molded.astype(np.float32) - m) / s
+                fill = np.float32((0.0 - m) / s)
+                if cfg.train_wire_int8:
+                    image_out = torch.from_numpy(
+                        (np.clip(y, -5.0, 5.0)
+                         * cfg.wire_int8_scale).astype(np.int8))
+                    fill = np.float32(np.clip(fill, -5.0, 5.0))
+                elif cfg.compute_dtype == "bfloat16":
+                    image_out = torch.from_numpy(y).to(torch.bfloat16)
+                else:
+                    image_out = torch.from_numpy(y)
+            item = AugTrainBatch(image=image_out[None, None],
+                                 labels=_labels_tensor(labels, cfg),
+                                 angle=0.0, fill=float(fill))
+            with self._lock:
+                self._mold_cache[image_id] = item
+        self._record(whole, (load, lab, mold))
         return item
 
     def make_item(self, image_id: int, angle: float, seed: int):
@@ -236,83 +248,90 @@ class TrainFeeder:
         if cfg.augment_on_device:
             return self._unrotated_item(image_id)._replace(
                 angle=float(np.float32(angle)))
-        t0 = time.perf_counter()
-        image = self.dataset.load_image(image_id)  # [H, W, D(, 1)]
-        mask = self.dataset.load_mask(image_id)    # [H, W, D]
-        img = image[..., 0] if image.ndim == 4 else image
-        t1 = time.perf_counter()
-        bf16 = cfg.compute_dtype == "bfloat16"
-        image_out = labels = None
-        t_labels = 0.0
-        if cfg.pad_shape is None:
-            # heart: mold, then rotate the molded volume (load_image_gt)
-            if bf16:
+        span = self.spans.span
+        with span("item", image_id) as whole:
+            with span("load", image_id) as load:
+                image = self.dataset.load_image(image_id)  # [H, W, D(, 1)]
+                mask = self.dataset.load_mask(image_id)    # [H, W, D]
+                img = image[..., 0] if image.ndim == 4 else image
+            with span("mold", image_id) as mold:
+                image_out, molded, labels = self._mold(img, mask, angle)
+            with span("labels", image_id) as lab:
+                if labels is None:
+                    labels = self._train_labels(img, mask, angle)
+            with span("rpn", image_id) as rpn:
+                gt_box = np_mask_to_extended_bbox(labels)
+                rpn_match, rpn_deltas = build_rpn_targets(
+                    self.anchors, gt_box, cfg, np.random.default_rng(seed))
+            if image_out is None:  # float32 compute
+                image_out = molded.astype(np.float32)
                 if cfg.train_wire_int8:
-                    image_out = native.heart_train_mold_q8(
+                    # the int8 train wire: clip +-5 (z-scored) or the HU
+                    # window's [0, 1], quantize; the step dequantizes
+                    image_out = (np.clip(image_out, -5.0, 5.0)
+                                 * cfg.wire_int8_scale).astype(np.int8)
+            d, h, w = cfg.image_shape
+            norm = np.array([d, h, w, d, h, w], np.float32)
+            item = TrainBatch(
+                image=_image_tensor(image_out),
+                rpn_match=torch.from_numpy(rpn_match),
+                rpn_deltas=torch.from_numpy(rpn_deltas),
+                gt_box_norm=torch.from_numpy(
+                    (gt_box / norm).astype(np.float32)),
+                labels=_labels_tensor(labels, cfg))
+        self._record(whole, (load, mold, lab, rpn))
+        return item
+
+    def _mold(self, img: np.ndarray, mask: np.ndarray, angle: float):
+        """(the wire image of the bf16 molds or None, the float32 molded
+        volume or None, the molded labels where the mold made them or
+        None) of a raw volume at ``angle``."""
+        cfg = self.cfg
+        if cfg.pad_shape is None:
+            if cfg.compute_dtype == "bfloat16":
+                # heart: mold, then rotate the molded volume (load_image_gt)
+                if cfg.train_wire_int8:
+                    return native.heart_train_mold_q8(
                         img, cfg.image_shape, angle, 5.0,
-                        cfg.wire_int8_scale)
-                else:
-                    image_out = native.heart_train_mold(img, cfg.image_shape,
-                                                        angle)
-                t2 = time.perf_counter()
-                labels = native.heart_train_labels(mask, cfg.image_shape,
-                                                   angle)
-                t_labels = time.perf_counter() - t2
-            else:
-                molded, labels = mold_with_labels(img, mask, cfg)
-                if angle != 0.0:
-                    molded = rotate_hw(molded.transpose(1, 2, 0), angle,
-                                       order=0).transpose(2, 0, 1)
-                    labels = rotate_hw(labels.transpose(1, 2, 0), angle,
-                                       order=0).transpose(2, 0, 1)
-                molded = normalize_intensity(molded, cfg)
-        elif bf16:
+                        cfg.wire_int8_scale), None, None
+                return native.heart_train_mold(img, cfg.image_shape,
+                                               angle), None, None
+            molded, labels = mold_with_labels(img, mask, cfg)
+            if angle != 0.0:
+                molded = rotate_hw(molded.transpose(1, 2, 0), angle,
+                                   order=0).transpose(2, 0, 1)
+                labels = rotate_hw(labels.transpose(1, 2, 0), angle,
+                                   order=0).transpose(2, 0, 1)
+            return None, normalize_intensity(molded, cfg), labels
+        if cfg.compute_dtype == "bfloat16":
             # LiTS: the raw rotation composed into the pad + resize
             # gather, straight to the wire (LiTS_2017/model.py:1211-1233)
             pd, ph, pw = cfg.pad_shape
             offs = pad_offsets(img.shape, cfg.pad_shape)
             if cfg.train_wire_int8:
-                image_out = native.lits_train_mold_q8(
+                return native.lits_train_mold_q8(
                     img, (ph, pw, pd), cfg.image_shape, offs, angle,
-                    cfg.hu_window, 5.0, cfg.wire_int8_scale)
-            else:
-                image_out = native.lits_train_mold(
-                    img, (ph, pw, pd), cfg.image_shape, offs, angle,
-                    cfg.hu_window)
-            t2 = time.perf_counter()
-            labels = native.lits_train_labels(mask, (ph, pw, pd),
-                                              cfg.image_shape, offs, angle)
-            t_labels = time.perf_counter() - t2
-        else:
-            # LiTS in float32: rotate the raw volume, then mold it
-            if angle != 0.0:
-                img = rotate_hw(img, angle, order=0)
-                mask = rotate_hw(mask, angle, order=0)
-            molded, labels = mold_with_labels(img, mask, cfg)
-        t3 = time.perf_counter()
+                    cfg.hu_window, 5.0, cfg.wire_int8_scale), None, None
+            return native.lits_train_mold(
+                img, (ph, pw, pd), cfg.image_shape, offs, angle,
+                cfg.hu_window), None, None
+        # LiTS in float32: rotate the raw volume, then mold it
+        if angle != 0.0:
+            img = rotate_hw(img, angle, order=0)
+            mask = rotate_hw(mask, angle, order=0)
+        molded, labels = mold_with_labels(img, mask, cfg)
+        return None, molded, labels
 
-        gt_box = np_mask_to_extended_bbox(labels)
-        rpn_match, rpn_deltas = build_rpn_targets(
-            self.anchors, gt_box, cfg, np.random.default_rng(seed))
-        t4 = time.perf_counter()
-        if image_out is None:  # float32 compute
-            image_out = molded.astype(np.float32)
-            if cfg.train_wire_int8:
-                # the int8 train wire: clip +-5 (z-scored) or the HU
-                # window's [0, 1], quantize; the step dequantizes
-                image_out = (np.clip(image_out, -5.0, 5.0)
-                             * cfg.wire_int8_scale).astype(np.int8)
-        d, h, w = cfg.image_shape
-        norm = np.array([d, h, w, d, h, w], np.float32)
-        item = TrainBatch(
-            image=_image_tensor(image_out),
-            rpn_match=torch.from_numpy(rpn_match),
-            rpn_deltas=torch.from_numpy(rpn_deltas),
-            gt_box_norm=torch.from_numpy((gt_box / norm).astype(np.float32)),
-            labels=_labels_tensor(labels, cfg))
-        self._record(t0, {"load": t1 - t0, "mold": t3 - t1 - t_labels,
-                          "labels": t_labels, "rpn": t4 - t3})
-        return item
+    def _train_labels(self, img: np.ndarray, mask: np.ndarray,
+                      angle: float) -> np.ndarray:
+        """The labels of the bf16 molds: the same maps as the image's."""
+        cfg = self.cfg
+        if cfg.pad_shape is None:
+            return native.heart_train_labels(mask, cfg.image_shape, angle)
+        pd, ph, pw = cfg.pad_shape
+        offs = pad_offsets(img.shape, cfg.pad_shape)
+        return native.lits_train_labels(mask, (ph, pw, pd), cfg.image_shape,
+                                        offs, angle)
 
     def epoch(self, angle: float, steps: int,
               epoch_index: Optional[int] = None) -> Iterator:

@@ -37,13 +37,24 @@ every 5 steps: the epoch's loss sums stay on the device, and the next
 item's upload is issued from page-locked memory on a copy stream while
 the step runs.  Validation forwards are the train forward without
 gradients, dropout on (the JAX package's ``val_forward``).
+
+The loop times itself in spans (``utils/profiling.py``; a recorder passed
+as ``spans``, whose log, when attached, keeps them): ``feed`` (the wait
+for the next item and its upload, counting the bytes sent as ``h2d``) and
+``step`` (the step's host enqueue, with the single-device step's
+``forward``, ``backward`` and ``update`` in it) under the number of the
+step they serve, ``epoch_end`` (the fetch of the epoch's loss sums and
+its log) under the epoch's, and the feeder's ``item`` spans on its
+worker threads.  ``on_step(step, metrics)``, called after each step is
+queued with the step's number and its metrics (on the device: the hook
+must not wait for them), stops the run when it returns True.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +71,7 @@ from cfun_tpu_torch.train.step import (TrainDraws, draw_train,
                                        make_train_step, train_forward_any)
 from cfun_tpu_torch.utils import checkpoint
 from cfun_tpu_torch.utils.logging import MetricsLogger, progress
+from cfun_tpu_torch.utils.profiling import SpanRecorder
 
 VAL_SEED_OFFSET = 0x5EED
 
@@ -146,7 +158,10 @@ def train_model(cfg: Config, train_dataset, val_dataset,
                 num_workers: int = 8,
                 mesh_spec: Optional[Tuple[int, int]] = None,
                 device="cuda", backend: Optional[str] = None,
-                devices=None) -> Optional[str]:
+                devices=None,
+                on_step: Optional[Callable[[int, dict], bool]] = None,
+                spans: Optional[SpanRecorder] = None,
+                observers: Optional[dict] = None) -> Optional[str]:
     """Train to ``epochs`` (default ``cfg.epochs``) on ``device``;
     returns the final checkpoint's path.  ``weights``: a checkpoint to
     start from (the port's or the JAX package's ``.npz``, which resumes
@@ -161,7 +176,15 @@ def train_model(cfg: Config, train_dataset, val_dataset,
     that; nothing changes the backend or the devices by itself, and fewer
     cards than ranks raise ValueError before any rank starts.  Under
     ``torchrun`` this process is one rank, and ranks other than 0 return
-    None."""
+    None.
+
+    ``on_step`` (one device only): called after each step is queued, as
+    ``on_step(step, metrics)`` (the module docstring); when it returns
+    True the run ends there, with no log of the epoch it stopped in, no
+    validation and no final checkpoint, and returns None.  ``spans``: the
+    recorder the loop, its step and its feeder time themselves in (a
+    fresh one, no log, when None).  ``observers`` (one device only): the
+    step's (``train/step.py::make_train_step``), by step number."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; train on the CPU with "
@@ -169,7 +192,11 @@ def train_model(cfg: Config, train_dataset, val_dataset,
     args = (cfg, train_dataset, val_dataset, log_dir, weights, epochs, seed,
             num_workers)
     if mesh_spec is None:
-        return _train(None, device, *args)
+        return _train(None, device, *args, on_step=on_step,
+                      spans=spans or SpanRecorder(), observers=observers)
+    if on_step is not None or observers is not None:
+        raise ValueError("on_step and observers run on one device: a "
+                         "mesh's ranks are processes of their own")
     if cfg.device_mold_cache:
         raise ValueError(
             "device_mold_cache is a single-device optimization: the mesh "
@@ -182,20 +209,27 @@ def train_model(cfg: Config, train_dataset, val_dataset,
 
 
 def _train_rank(mesh, *args) -> Optional[str]:
-    return _train(mesh, mesh.device, *args)
+    return _train(mesh, mesh.device, *args, on_step=None,
+                  spans=SpanRecorder(), observers=None)
 
 
 def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
            log_dir: str, weights: Optional[str], epochs: Optional[int],
-           seed: int, num_workers: int) -> Optional[str]:
+           seed: int, num_workers: int,
+           on_step: Optional[Callable[[int, dict], bool]],
+           spans: SpanRecorder, observers: Optional[dict]
+           ) -> Optional[str]:
     """The loop on ``device``, alone (``mesh`` None) or as one rank of
-    ``mesh``; the final checkpoint's path (None on ranks other than 0)."""
+    ``mesh``; the final checkpoint's path (None on ranks other than 0,
+    and where ``on_step`` stopped the run)."""
     main = mesh is None or mesh.rank == 0
     row = None if mesh is None else mesh.data_index
     epochs = epochs or cfg.epochs
     anchors = config_anchors(cfg)
+    span = spans.span
     if mesh is None:
-        init_state, step = make_train_step(cfg, anchors)
+        init_state, step = make_train_step(cfg, anchors, spans=spans,
+                                           observers=observers)
     else:
         init_state, step = make_parallel_train_step(cfg, anchors, mesh)
     state = init_state(W.to_device(W.init_params(cfg, seed=seed), device))
@@ -226,13 +260,24 @@ def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
               f"({mesh.data} volumes/step, {mesh.backend} on "
               f"{mesh.device.type})", flush=True)
     feeder = TrainFeeder(train_dataset, cfg, anchors, seed=seed,
-                         num_workers=num_workers, **shard)
+                         num_workers=num_workers, spans=spans, **shard)
     val_feeder = TrainFeeder(val_dataset, cfg, anchors, seed=seed + 1,
-                             num_workers=max(2, num_workers // 2), **shard)
+                             num_workers=max(2, num_workers // 2),
+                             spans=spans, **shard)
     up = Uploader(device, resident=cfg.device_mold_cache)
     anchors_dev = torch.from_numpy(anchors).to(device)
     ckpt_path = os.path.join(run_dir, "model")
     total_sum = float("nan")
+
+    stopped = False
+
+    def feed():
+        """The next item, put on its way to the device."""
+        with span("feed", state.step, h2d=0) as fed:
+            sent = up.bytes
+            item = up.put(next(items, None))
+            fed.counts["h2d"] = up.bytes - sent
+        return item, fed.seconds
 
     try:
         for epoch in range(start_epoch + 1, epochs + 1):
@@ -241,20 +286,19 @@ def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
             gen = epoch_generator(seed, epoch, device, row)
             items = feeder.epoch(angle, cfg.steps_per_epoch,
                                  epoch_index=epoch)
-            sent, wait = up.bytes, 0.0
-            tw = time.perf_counter()
-            pending = up.put(next(items, None))
-            wait += time.perf_counter() - tw
+            sent = up.bytes
+            pending, wait = feed()
             sums, i = None, 0
             while pending is not None:
-                cur = up.ready(pending)
-                draws = step_draws(cfg, gen, device)
-                state, metrics = step(state, cur, draws)  # queued
+                n = state.step
+                with span("step", n):
+                    cur = up.ready(pending)
+                    draws = step_draws(cfg, gen, device)
+                    state, metrics = step(state, cur, draws)  # queued
                 # while the step runs: the next item (its worker may still
                 # be molding it) and its upload
-                tw = time.perf_counter()
-                pending = up.put(next(items, None))
-                wait += time.perf_counter() - tw
+                pending, waited = feed()
+                wait += waited
                 sums = metrics if sums is None else {
                     k: sums[k] + v for k, v in metrics.items()}
                 if main and ((i + 1) % 5 == 0
@@ -263,21 +307,28 @@ def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
                              {"loss": float(metrics["total_loss"])},
                              prefix=f"epoch {epoch} ")
                 i += 1
-            keys = sorted(sums)
-            fetched = {k: v / cfg.steps_per_epoch for k, v in zip(
-                keys, torch.stack([sums[k] for k in keys]).tolist())}
-            total_sum = fetched.pop("total_loss")
-            times = feeder.pop_times()
-            item_ms = {k: 1e3 * float(np.mean([t[k] for t in times]))
-                       for k in times[0]} if times else {}
-            logger.log({"epoch": epoch, "angle": angle, "loss": total_sum,
-                        **fetched, "epoch_s": round(time.time() - t0, 2),
-                        "steps": i, "feeder_wait_s": wait,
-                        "feeder_item_ms": item_ms,
-                        "h2d_bytes": up.bytes - sent})
-            if main:
-                print(f"Epoch {epoch}/{epochs} loss {total_sum:.5f} "
-                      f"({time.time() - t0:.1f}s)", flush=True)
+                if on_step is not None and on_step(n, metrics):
+                    stopped = True
+                    break
+            if stopped:
+                break
+            with span("epoch_end", epoch):
+                keys = sorted(sums)
+                fetched = {k: v / cfg.steps_per_epoch for k, v in zip(
+                    keys, torch.stack([sums[k] for k in keys]).tolist())}
+                total_sum = fetched.pop("total_loss")
+                times = feeder.pop_times()
+                item_ms = {k: 1e3 * float(np.mean([t[k] for t in times]))
+                           for k in times[0]} if times else {}
+                logger.log({"epoch": epoch, "angle": angle,
+                            "loss": total_sum, **fetched,
+                            "epoch_s": round(time.time() - t0, 2),
+                            "steps": i, "feeder_wait_s": wait,
+                            "feeder_item_ms": item_ms,
+                            "h2d_bytes": up.bytes - sent})
+                if main:
+                    print(f"Epoch {epoch}/{epochs} loss {total_sum:.5f} "
+                          f"({time.time() - t0:.1f}s)", flush=True)
 
             if epoch % cfg.val_every_epochs == 0:
                 val_loss = 0.0
@@ -317,7 +368,7 @@ def _train(mesh, device, cfg: Config, train_dataset, val_dataset,
         # never hide the loop's own exception behind a writer failure
         checkpoint.flush(raise_errors=False)
 
-    if not main:
+    if not main or stopped:
         return None
     meta = {"name": cfg.name, "stage": cfg.stage}
     if total_sum == total_sum:  # NaN <=> no epoch ran: no loss

@@ -31,7 +31,7 @@ several volumes on one device, the dense reference of the mesh step.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +52,12 @@ from cfun_tpu_torch.parallel.halo import (shard_map_unet,
 from cfun_tpu_torch.train import losses as L
 from cfun_tpu_torch.train.targets import (TargetDraws, detection_targets,
                                           draw_targets)
+from cfun_tpu_torch.utils.profiling import SpanRecorder
 
 LOSS_NAMES = ("rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
               "mrcnn_bbox_loss", "mrcnn_mask_loss", "mrcnn_mask_edge_loss")
+# the spans of a step given no recorder: timed, kept nowhere
+_UNLOGGED = SpanRecorder()
 
 
 class TrainBatch(NamedTuple):
@@ -311,7 +314,8 @@ def make_optimizer(cfg: Config, params) -> SGDChain:
 def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
                   cfg: Config, draws: Optional[TrainDraws] = None,
                   generator: Optional[torch.Generator] = None,
-                  nms: cfun.NmsFn = sorted_nms, mesh=None
+                  nms: cfun.NmsFn = sorted_nms, mesh=None,
+                  taken: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward + all losses for one example on the batch's device.
     Returns (total, unweighted parts).
@@ -324,7 +328,10 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     (after the device augment of an ``AugTrainBatch``, on the whole
     volume), and with ``cfg.shard_unet_spatial`` too the mask U-Net and
     its losses split along D (``parallel/halo.py``); the results are the
-    row's, the same on each of its ranks."""
+    row's, the same on each of its ranks.  ``taken``: a dict that receives
+    the proposal layer's NMS call as ``"nms"`` (its score-sorted boxes,
+    valid, threshold, idx and keep) and the detection targets as
+    ``"targets"``."""
     train_det, train_mask_branch, edge_on = stage_flags(cfg)
     dt = cfun.compute_dtype(cfg)
     image = batch.image
@@ -339,6 +346,8 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
         # dtype
         image = image.to(dt) * (1.0 / cfg.wire_int8_scale)
     split = mesh is not None and mesh.space > 1
+    if taken is not None:
+        nms = _taken_nms(nms, taken)
     trunk = cfun.apply_trunk(params, image, cfg, remat=cfg.remat_trunk,
                              group=mesh.space_group if split else None)
     proposals, valid = cfun.propose(
@@ -351,6 +360,8 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
         labels = unpack_labels_w(labels)
     tgt = detection_targets(proposals, valid, batch.gt_box_norm, labels, cfg,
                             draws.targets, with_masks=train_mask_branch)
+    if taken is not None:
+        taken["targets"] = tgt
 
     zero = torch.zeros((), dtype=torch.float32, device=device)
     out = {name: zero for name in LOSS_NAMES}
@@ -415,10 +426,20 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     return L.weighted_total(out, cfg), out
 
 
+def _taken_nms(nms: cfun.NmsFn, taken: dict) -> cfun.NmsFn:
+    """``nms`` that also keeps its call in ``taken["nms"]``."""
+    def call(boxes, valid, threshold, k):
+        idx, keep = nms(boxes, valid, threshold, k)
+        taken["nms"] = (boxes, valid, threshold, idx, keep)
+        return idx, keep
+    return call
+
+
 def train_forward_any(params, batch, anchors: torch.Tensor, cfg: Config,
                       draws: Optional[TrainDraws] = None,
                       generator: Optional[torch.Generator] = None,
-                      nms: cfun.NmsFn = sorted_nms, mesh=None):
+                      nms: cfun.NmsFn = sorted_nms, mesh=None,
+                      taken: Optional[dict] = None):
     """:func:`train_forward` that also takes an ``AugTrainBatch``
     (``cfg.augment_on_device``): the rotation, the re-z-score and the RPN
     targets run on the device first (``ops/augment.py``)."""
@@ -432,7 +453,8 @@ def train_forward_any(params, batch, anchors: torch.Tensor, cfg: Config,
                              "(cfg.augment_on_device)")
         batch = device_augment(batch, anchors, cfg, draws.augment)
     return train_forward(params, batch, anchors, cfg, draws=draws,
-                         generator=generator, nms=nms, mesh=mesh)
+                         generator=generator, nms=nms, mesh=mesh,
+                         taken=taken)
 
 
 def unstack_batch(batch, i: int):
@@ -460,24 +482,31 @@ def batched_train_forward(params, batch, anchors: torch.Tensor, cfg: Config,
 def loss_and_grads(params, batch: TrainBatch, anchors: torch.Tensor,
                    cfg: Config, draws: Optional[TrainDraws] = None,
                    generator: Optional[torch.Generator] = None,
-                   nms: cfun.NmsFn = sorted_nms, mesh=None):
+                   nms: cfun.NmsFn = sorted_nms, mesh=None,
+                   taken: Optional[dict] = None,
+                   spans: Optional[SpanRecorder] = None, step=None):
     """:func:`train_forward_any` and the gradients of its total with respect
     to the trainable leaves: (total, parts, {tree path: gradient}), a
     leaf the loss does not reach getting zeros (its update is then the
     weight decay alone, as in the JAX package).  With a ``mesh`` the
     gradients are those of this rank's share of the step's objective,
     ``total / mesh.size`` (``parallel/mesh.py``); the total and the parts
-    returned are the row's."""
+    returned are the row's.  ``taken``: :func:`train_forward`'s.
+    ``spans``: the recorder that times the forward's and the backward's
+    enqueue, as ``forward`` and ``backward`` under ``step``."""
+    span = (spans or _UNLOGGED).span
     flat = weights._leaves(params)
     train = weights._leaves(trainable_mask(params, cfg))
     paths = [p for p in flat if train[p]]
-    total, parts = train_forward_any(params, batch, anchors, cfg,
-                                     draws=draws, generator=generator,
-                                     nms=nms, mesh=mesh)
+    with span("forward", step):
+        total, parts = train_forward_any(params, batch, anchors, cfg,
+                                         draws=draws, generator=generator,
+                                         nms=nms, mesh=mesh, taken=taken)
     leaves = [flat[p] for p in paths]
     share = total if mesh is None else total / mesh.size
-    grads = torch.autograd.grad(share, leaves, allow_unused=True) \
-        if total.requires_grad else [None] * len(leaves)
+    with span("backward", step):
+        grads = torch.autograd.grad(share, leaves, allow_unused=True) \
+            if total.requires_grad else [None] * len(leaves)
     return total.detach(), {k: v.detach() for k, v in parts.items()}, {
         p: torch.zeros_like(x) if g is None else g
         for p, x, g in zip(paths, leaves, grads)}
@@ -494,16 +523,40 @@ def apply_update(cfg: Config, state: TrainState, grads: Dict[str, torch.Tensor],
     return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
-def make_train_step(cfg: Config, anchors):
+class StepView(NamedTuple):
+    """One step as its observer receives it, before the update: the state
+    (its parameters and optimizer state not yet stepped, updated in place
+    after), the batch and draws the step took, its unweighted loss parts,
+    the gradients it hands the optimizer by tree path, and what its
+    forward took (:func:`train_forward`'s ``taken``: the proposal layer's
+    NMS call, the detection targets)."""
+    state: TrainState
+    batch: TrainBatch
+    draws: Optional[TrainDraws]
+    parts: Dict[str, torch.Tensor]
+    grads: Dict[str, torch.Tensor]
+    taken: dict
+
+
+def make_train_step(cfg: Config, anchors,
+                    spans: Optional[SpanRecorder] = None,
+                    observers: Optional[Dict[int, Callable[[StepView],
+                                                           None]]] = None):
     """Returns (init_state_fn, step_fn).
 
     ``init_state(params)`` marks the trainable leaves ``requires_grad``
     (the others not) and builds the optimizer.  ``step(state, batch,
     draws=None, generator=None, nms=sorted_nms)`` runs one step on the
     batch's device (a ``TrainBatch`` or an ``AugTrainBatch``) and returns
-    (state, metrics)."""
+    (state, metrics), its host enqueue timed in ``spans`` (``forward``,
+    ``backward``, ``update``, under the step's number).  ``observers``:
+    {step number (``TrainState.step`` before the step): callable}; the
+    step of that number removes its observer and calls it once with the
+    step's ``StepView``, before the update."""
     anchors = torch.as_tensor(np.asarray(anchors, np.float32))
     on_device: Dict[torch.device, torch.Tensor] = {}
+    spans = spans or _UNLOGGED
+    observers = {} if observers is None else observers
 
     def init_state(params) -> TrainState:
         mask = weights._leaves(trainable_mask(params, cfg))
@@ -518,9 +571,15 @@ def make_train_step(cfg: Config, anchors):
         device = batch.image.device
         if device not in on_device:
             on_device[device] = anchors.to(device)
+        n = state.step
+        watch = observers.pop(n, None)
+        taken = None if watch is None else {}
         total, parts, grads = loss_and_grads(
             state.params, batch, on_device[device], cfg, draws=draws,
-            generator=generator, nms=nms)
-        return apply_update(cfg, state, grads, total, parts)
+            generator=generator, nms=nms, taken=taken, spans=spans, step=n)
+        if watch is not None:
+            watch(StepView(state, batch, draws, parts, grads, taken))
+        with spans.span("update", n):
+            return apply_update(cfg, state, grads, total, parts)
 
     return init_state, step

@@ -2191,8 +2191,8 @@ class LoopProbe:
             self.plain += 1
             return self._orig_plain(*args)
 
-        def make(cfg, anchors):
-            init, step = self._orig_make(cfg, anchors)
+        def make(cfg, anchors, **kw):
+            init, step = self._orig_make(cfg, anchors, **kw)
 
             def wrapped(state, batch, draws=None, generator=None, **kw):
                 self._edge(len(self.events))
