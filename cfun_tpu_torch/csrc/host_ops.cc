@@ -42,6 +42,14 @@
 //     virtual-pad nearest resize, HU window, bf16 bits or the int8 wire;
 //     lits_train_labels_i32 their label companion.
 //   pad_nearest_i32: the virtual-pad nearest resize of a label volume.
+//
+// The functions the training feeder calls (mold_resize_f32, lits_mold_f32,
+// the train molds, their label companions and pad_nearest_i32) take a last
+// argument `threads`: the size of the OpenMP team each of their parallel
+// regions runs on, or <= 0 for the default (omp_get_max_threads()).  No
+// function sets the process's thread count.  The heart train mold's z-score
+// sums are per-row partials added in row order, so its output does not
+// depend on the team's size.
 
 #include <algorithm>
 #include <cmath>
@@ -54,6 +62,16 @@
 #endif
 
 namespace {
+
+// The team size of a region: `threads` where positive, else the default.
+inline int team_threads(int threads) {
+#if defined(_OPENMP)
+  return threads > 0 ? threads : omp_get_max_threads();
+#else
+  (void)threads;
+  return 1;
+#endif
+}
 
 inline void axis_coords(int n_out, int n_in, float* src, int* i0, int* i1,
                         float* frac) {
@@ -89,14 +107,15 @@ struct AxisMap {
 template <typename Emit>
 void resize_tiled(const float* src, int h0, int w0, int d0, int dt, int ht,
                   int wt, int z_start, int z_end, double* out_sum,
-                  double* out_sumsq, Emit emit) {
+                  double* out_sumsq, int threads, Emit emit) {
   const AxisMap zm(dt, d0), ym(ht, h0), xm(wt, w0);
   const int64_t src_h_stride = static_cast<int64_t>(w0) * d0;
   const int zc = z_end - z_start;
   constexpr int XB = 128;
   double sum = 0.0, sumsq = 0.0;
 
-#pragma omp parallel reduction(+ : sum, sumsq)
+#pragma omp parallel num_threads(team_threads(threads)) \
+    reduction(+ : sum, sumsq)
   {
     std::vector<float> tile(static_cast<size_t>(zc) * XB);
 #if defined(_OPENMP)
@@ -166,9 +185,9 @@ extern "C" {
 // normalize != 0: z-score the output in a second pass (mean/std of the
 // molded volume, reference model.py:1902-1904).
 void mold_resize_f32(const float* src, int h0, int w0, int d0, float* dst,
-                     int dt, int ht, int wt, int normalize) {
+                     int dt, int ht, int wt, int normalize, int threads) {
   double sum = 0.0, sumsq = 0.0;
-  resize_tiled(src, h0, w0, d0, dt, ht, wt, 0, dt, &sum, &sumsq,
+  resize_tiled(src, h0, w0, d0, dt, ht, wt, 0, dt, &sum, &sumsq, threads,
                [dst, ht, wt](int z, int y, int xb, int n, const float* row) {
                  std::memcpy(dst + (static_cast<int64_t>(z) * ht + y) * wt +
                                  xb,
@@ -182,7 +201,7 @@ void mold_resize_f32(const float* src, int h0, int w0, int d0, float* dst,
     if (var < 1e-12) var = 1.0;
     const float inv = static_cast<float>(1.0 / std::sqrt(var));
     const float m = static_cast<float>(mean);
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) num_threads(team_threads(threads))
     for (int64_t i = 0; i < n; ++i) dst[i] = (dst[i] - m) * inv;
   }
 }
@@ -194,7 +213,7 @@ void mold_resize_f32(const float* src, int h0, int w0, int d0, float* dst,
 void mold_resize_q8(const float* src, int h0, int w0, int d0, float* tmp,
                     int8_t* dst_q8, int dt, int ht, int wt, float clip_sigma,
                     float scale) {
-  mold_resize_f32(src, h0, w0, d0, tmp, dt, ht, wt, 1);
+  mold_resize_f32(src, h0, w0, d0, tmp, dt, ht, wt, 1, 0);
   const int64_t n = static_cast<int64_t>(dt) * ht * wt;
 #pragma omp parallel for schedule(static)
   for (int64_t i = 0; i < n; ++i) {
@@ -308,7 +327,7 @@ void mold_resize_slab_q8(const float* src, int h0, int w0, int d0,
                          float clip_sigma, float scale) {
   const int z_end = std::min(z_start + z_count, dt);
   resize_tiled(
-      src, h0, w0, d0, dt, ht, wt, z_start, z_end, nullptr, nullptr,
+      src, h0, w0, d0, dt, ht, wt, z_start, z_end, nullptr, nullptr, 0,
       [dst, ht, wt, z_start, mean, inv_std, clip_sigma, scale](
           int z, int y, int xb, int n, const float* row) {
         int8_t* out =
@@ -412,7 +431,7 @@ void unmold_labels_box_i16(const int8_t* lab, int md, int mh, int mw,
 // reference's zero-pad of the windowed volume.
 void lits_mold_f32(const float* src, int h0, int w0, int d0, int ph, int pw,
                    int pd, int oh, int ow, int od, float* dst, int dt,
-                   int ht, int wt, float mn, float mx) {
+                   int ht, int wt, float mn, float mx, int threads) {
   // same staged-column structure as lits_mold_slab_q8: window each source
   // column once over its contiguous span (autovectorized), then the
   // nearest z map is L1 gathers
@@ -434,7 +453,7 @@ void lits_mold_f32(const float* src, int h0, int w0, int d0, int ph, int pw,
     zrel[z] = zi[z] >= 0 ? zi[z] - zmin + 1 : 0;
   constexpr int XB = 128;
 
-#pragma omp parallel
+#pragma omp parallel num_threads(team_threads(threads))
   {
     std::vector<float> tile(static_cast<size_t>(dt) * XB);
     std::vector<float> buf(static_cast<size_t>(span) + 1);
@@ -640,7 +659,11 @@ void unmold_nearest_i16(const int8_t* lab, int dm, int hm, int wm,
 
 // ---------------------------------------------------------------------------
 // Training molds: the serving molds with the epoch's (H, W) rotation
-// composed in, emitting the train wire (bf16 or int8) directly.
+// composed in, emitting the train wire (bf16 or int8) directly.  Their
+// loops hand out rows (or blocks of voxels) dynamically: the feeder's team
+// shares the host with the training loop and the workers, and a thread
+// the scheduler holds back then delays no barrier by its whole static
+// share.  Each row is computed alone, so the output is the same.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -693,10 +716,13 @@ inline int8_t q8_of_bf16(float v, float clip_sigma, float scale) {
 // Shared body of the heart train molds: trilinear resize + nearest (H, W)
 // rotation into tmp ([D, H, W]), returning the z-score (mean, 1/std).
 // Rotation fill voxels are 0 before the z-score, the reference's order
-// (augment, then mold_image; model.py:1555 + 1902-1904).
+// (augment, then mold_image; model.py:1555 + 1902-1904).  Each output row
+// y sums its voxels into a partial of its own, and the partials add up in
+// row order: the statistics, and so every output bit, are the same on a
+// team of any size.
 void heart_train_mold_core(const float* src, int h0, int w0, int d0,
                            float* tmp, int dt, int ht, int wt,
-                           float angle_deg, float* out_mean,
+                           float angle_deg, int threads, float* out_mean,
                            float* out_inv) {
   std::vector<int> ry(static_cast<size_t>(ht) * wt),
       rx(static_cast<size_t>(ht) * wt);
@@ -704,15 +730,16 @@ void heart_train_mold_core(const float* src, int h0, int w0, int d0,
   const AxisMap zm(dt, d0), ym(ht, h0), xm(wt, w0);
   const int64_t hs = static_cast<int64_t>(w0) * d0;
   constexpr int XB = 128;
-  double sum = 0.0, sumsq = 0.0;
+  std::vector<double> row_sum(ht), row_sumsq(ht);
 
-#pragma omp parallel reduction(+ : sum, sumsq)
+#pragma omp parallel num_threads(team_threads(threads))
   {
     std::vector<float> tile(static_cast<size_t>(dt) * XB);
 #if defined(_OPENMP)
-#pragma omp for schedule(static)
+#pragma omp for schedule(dynamic, 2)
 #endif
     for (int y = 0; y < ht; ++y) {
+      double sum = 0.0, sumsq = 0.0;
       for (int xb = 0; xb < wt; xb += XB) {
         const int xn = std::min(XB, wt - xb);
         for (int xo = 0; xo < xn; ++xo) {
@@ -751,9 +778,16 @@ void heart_train_mold_core(const float* src, int h0, int w0, int d0,
                       tile.data() + static_cast<size_t>(z) * XB,
                       static_cast<size_t>(xn) * sizeof(float));
       }
+      row_sum[y] = sum;
+      row_sumsq[y] = sumsq;
     }
   }
 
+  double sum = 0.0, sumsq = 0.0;
+  for (int y = 0; y < ht; ++y) {
+    sum += row_sum[y];
+    sumsq += row_sumsq[y];
+  }
   const int64_t n = static_cast<int64_t>(dt) * ht * wt;
   const double mean = sum / n;
   double var = sumsq / n - mean * mean;
@@ -774,7 +808,7 @@ template <typename OutT, typename Quant>
 void lits_train_mold_core(const float* src, int h0, int w0, int d0, int ph,
                           int pw, int pd, int oh, int ow, int od, OutT* dst,
                           int dt, int ht, int wt, float angle_deg, float mn,
-                          float mx, Quant quant) {
+                          float mx, int threads, Quant quant) {
   std::vector<int> zi(dt), yi(ht), xi(wt);
   nearest_pad_axis(dt, pd, d0, od, zi.data());
   nearest_pad_axis(ht, ph, h0, oh, yi.data());
@@ -799,12 +833,12 @@ void lits_train_mold_core(const float* src, int h0, int w0, int d0, int ph,
     zrel[z] = zi[z] >= 0 ? zi[z] - zmin + 1 : 0;
   constexpr int XB = 128;
 
-#pragma omp parallel
+#pragma omp parallel num_threads(team_threads(threads))
   {
     std::vector<OutT> tile(static_cast<size_t>(dt) * XB);
     std::vector<OutT> buf(static_cast<size_t>(span) + 1);
 #if defined(_OPENMP)
-#pragma omp for schedule(static)
+#pragma omp for schedule(dynamic, 2)
 #endif
     for (int y = 0; y < ht; ++y) {
       const int sy = yi[y];
@@ -856,15 +890,15 @@ void lits_train_mold_core(const float* src, int h0, int w0, int d0, int ph,
 void gather_labels_i32(const int32_t* src, int w0, int d0, int32_t* dst,
                        int dt, int ht, int wt, const int* zi, const int* yi,
                        const int* xi, const int* ry, const int* rx,
-                       int rot_w, bool rot_first) {
+                       int rot_w, bool rot_first, int threads) {
   const int64_t hs = static_cast<int64_t>(w0) * d0;
   constexpr int XB = 128;
 
-#pragma omp parallel
+#pragma omp parallel num_threads(team_threads(threads))
   {
     std::vector<int32_t> tile(static_cast<size_t>(dt) * XB);
 #if defined(_OPENMP)
-#pragma omp for schedule(static)
+#pragma omp for schedule(dynamic, 2)
 #endif
     for (int y = 0; y < ht; ++y) {
       for (int xb = 0; xb < wt; xb += XB) {
@@ -918,12 +952,13 @@ extern "C" {
 // chain of four full-volume passes).  dst: [dt, ht, wt] uint16.
 void heart_train_mold_bf16(const float* src, int h0, int w0, int d0,
                            uint16_t* dst, float* tmp, int dt, int ht,
-                           int wt, float angle_deg) {
+                           int wt, float angle_deg, int threads) {
   float m, inv;
-  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, &m,
-                        &inv);
+  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, threads,
+                        &m, &inv);
   const int64_t n = static_cast<int64_t>(dt) * ht * wt;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(dynamic, 1 << 16) \
+    num_threads(team_threads(threads))
   for (int64_t i = 0; i < n; ++i) dst[i] = to_bf16((tmp[i] - m) * inv);
 }
 
@@ -932,12 +967,14 @@ void heart_train_mold_bf16(const float* src, int h0, int w0, int d0,
 // it would otherwise ship), then clipped, scaled in f32 and truncated.
 void heart_train_mold_q8(const float* src, int h0, int w0, int d0,
                          int8_t* dst, float* tmp, int dt, int ht, int wt,
-                         float angle_deg, float clip_sigma, float scale) {
+                         float angle_deg, float clip_sigma, float scale,
+                         int threads) {
   float m, inv;
-  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, &m,
-                        &inv);
+  heart_train_mold_core(src, h0, w0, d0, tmp, dt, ht, wt, angle_deg, threads,
+                        &m, &inv);
   const int64_t n = static_cast<int64_t>(dt) * ht * wt;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(dynamic, 1 << 16) \
+    num_threads(team_threads(threads))
   for (int64_t i = 0; i < n; ++i)
     dst[i] = q8_of_bf16((tmp[i] - m) * inv, clip_sigma, scale);
 }
@@ -946,7 +983,7 @@ void heart_train_mold_q8(const float* src, int h0, int w0, int d0,
 // nearest (H, W) rotation, zero (background) fill, int32 [D, H, W].
 void heart_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
                             int32_t* dst, int dt, int ht, int wt,
-                            float angle_deg) {
+                            float angle_deg, int threads) {
   std::vector<int> ry(static_cast<size_t>(ht) * wt),
       rx(static_cast<size_t>(ht) * wt);
   rotate_maps(ht, wt, angle_deg, ry.data(), rx.data());
@@ -955,7 +992,7 @@ void heart_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
   nearest_pad_axis(ht, h0, h0, 0, yi.data());
   nearest_pad_axis(wt, w0, w0, 0, xi.data());
   gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
-                    xi.data(), ry.data(), rx.data(), wt, true);
+                    xi.data(), ry.data(), rx.data(), wt, true, threads);
 }
 
 // LiTS train mold to the int8 wire: rotate_hw(raw) -> lits_mold ->
@@ -964,10 +1001,11 @@ void heart_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
 void lits_train_mold_q8(const float* src, int h0, int w0, int d0, int ph,
                         int pw, int pd, int oh, int ow, int od, int8_t* dst,
                         int dt, int ht, int wt, float angle_deg, float mn,
-                        float mx, float clip_sigma, float scale) {
+                        float mx, float clip_sigma, float scale,
+                        int threads) {
   lits_train_mold_core<int8_t>(
       src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst, dt, ht, wt, angle_deg,
-      mn, mx, [clip_sigma, scale](float v) {
+      mn, mx, threads, [clip_sigma, scale](float v) {
         return q8_of_bf16(v, clip_sigma, scale);
       });
 }
@@ -976,9 +1014,10 @@ void lits_train_mold_q8(const float* src, int h0, int w0, int d0, int ph,
 void lits_train_mold_bf16(const float* src, int h0, int w0, int d0, int ph,
                           int pw, int pd, int oh, int ow, int od,
                           uint16_t* dst, int dt, int ht, int wt,
-                          float angle_deg, float mn, float mx) {
+                          float angle_deg, float mn, float mx,
+                          int threads) {
   lits_train_mold_core<uint16_t>(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
-                                 dst, dt, ht, wt, angle_deg, mn, mx,
+                                 dst, dt, ht, wt, angle_deg, mn, mx, threads,
                                  [](float v) { return to_bf16(v); });
 }
 
@@ -988,7 +1027,7 @@ void lits_train_mold_bf16(const float* src, int h0, int w0, int d0, int ph,
 void lits_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
                            int ph, int pw, int pd, int oh, int ow, int od,
                            int32_t* dst, int dt, int ht, int wt,
-                           float angle_deg) {
+                           float angle_deg, int threads) {
   std::vector<int> zi(dt), yi(ht), xi(wt);
   nearest_pad_axis(dt, pd, d0, od, zi.data());
   nearest_pad_axis(ht, ph, h0, oh, yi.data());
@@ -997,20 +1036,20 @@ void lits_train_labels_i32(const int32_t* src, int h0, int w0, int d0,
       rx(static_cast<size_t>(h0) * w0);
   rotate_maps(h0, w0, angle_deg, ry.data(), rx.data());
   gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
-                    xi.data(), ry.data(), rx.data(), w0, false);
+                    xi.data(), ry.data(), rx.data(), w0, false, threads);
 }
 
 // Virtual-pad nearest resize of an int32 label volume (no rotation):
 // the label mold of LiTS, and of the heart with pad == source shape.
 void pad_nearest_i32(const int32_t* src, int h0, int w0, int d0, int ph,
                      int pw, int pd, int oh, int ow, int od, int32_t* dst,
-                     int dt, int ht, int wt) {
+                     int dt, int ht, int wt, int threads) {
   std::vector<int> zi(dt), yi(ht), xi(wt);
   nearest_pad_axis(dt, pd, d0, od, zi.data());
   nearest_pad_axis(ht, ph, h0, oh, yi.data());
   nearest_pad_axis(wt, pw, w0, ow, xi.data());
   gather_labels_i32(src, w0, d0, dst, dt, ht, wt, zi.data(), yi.data(),
-                    xi.data(), nullptr, nullptr, 0, false);
+                    xi.data(), nullptr, nullptr, 0, false, threads);
 }
 
 int cfun_native_num_threads() {

@@ -13,12 +13,29 @@ caller's explicit choice of the NumPy mold (``data/mold.py``).
 
 Every wrapper checks the shapes, dtypes and contiguity of what it passes
 by pointer; the arithmetic is the C++ code's (see its header).
+
+The training feeder's calls run on a :class:`Team`: ``mold_resize``,
+``lits_mold``, ``pad_nearest_labels``, the train molds
+(``heart_train_mold(_q8)``, ``lits_train_mold(_q8)``) and their label
+companions take ``team=``.  A team is one thread that makes those calls
+one at a time, each C region on an OpenMP team of ``Team.threads``
+threads, passed to the C function as its thread count (a ``num_threads``
+clause); the wrapper's own NumPy work (the source's copy to float32 or
+int32, the output's allocation) stays on the caller's thread.  The
+feeder's team is one a process, sized by ``data/feeder.py::team_size``.
+Calls without a team (serving's) run on the caller's thread on the
+library's default team, ``omp_get_max_threads()``; nothing here sets the
+process's OpenMP thread count.  Every output the feeder asks for is the
+same at any team size: the one reduction on its path, the heart train
+mold's z-score sums, adds per-row partials in row order
+(``mold_resize``'s z-score, which the feeder leaves off, does not).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,7 +52,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i, f = ctypes.c_int, ctypes.c_float
-    lib.mold_resize_f32.argtypes = [f32p, i, i, i, f32p, i, i, i, i]
+    # the functions the feeder calls end in the team's thread count
+    lib.mold_resize_f32.argtypes = [f32p, i, i, i, f32p, i, i, i, i, i]
     lib.mold_resize_f32.restype = None
     lib.mold_resize_q8.argtypes = [f32p, i, i, i, f32p, i8p, i, i, i, f, f]
     lib.mold_resize_q8.restype = None
@@ -51,7 +69,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.unmold_labels_box_i16.argtypes = [i8p, i, i, i, i32p, i32p, i32p,
                                           i16p] + [i] * 9
     lib.unmold_labels_box_i16.restype = None
-    lib.lits_mold_f32.argtypes = [f32p] + [i] * 9 + [f32p, i, i, i, f, f]
+    lib.lits_mold_f32.argtypes = [f32p] + [i] * 9 + [f32p, i, i, i, f, f, i]
     lib.lits_mold_f32.restype = None
     lib.lits_mold_slab_q8.argtypes = [f32p] + [i] * 9 + [i8p] + [i] * 5 + \
         [f] * 3
@@ -61,23 +79,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.unmold_nearest_i16.restype = None
     u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
     lib.heart_train_mold_bf16.argtypes = [f32p, i, i, i, u16p, f32p, i, i,
-                                          i, f]
+                                          i, f, i]
     lib.heart_train_mold_bf16.restype = None
     lib.heart_train_mold_q8.argtypes = [f32p, i, i, i, i8p, f32p, i, i, i,
-                                        f, f, f]
+                                        f, f, f, i]
     lib.heart_train_mold_q8.restype = None
-    lib.heart_train_labels_i32.argtypes = [i32p, i, i, i, i32p, i, i, i, f]
+    lib.heart_train_labels_i32.argtypes = [i32p, i, i, i, i32p, i, i, i, f,
+                                           i]
     lib.heart_train_labels_i32.restype = None
     lib.lits_train_mold_q8.argtypes = [f32p] + [i] * 9 + [i8p, i, i, i] + \
-        [f] * 5
+        [f] * 5 + [i]
     lib.lits_train_mold_q8.restype = None
     lib.lits_train_mold_bf16.argtypes = [f32p] + [i] * 9 + [u16p, i, i, i] \
-        + [f] * 3
+        + [f] * 3 + [i]
     lib.lits_train_mold_bf16.restype = None
     lib.lits_train_labels_i32.argtypes = [i32p] + [i] * 9 + [i32p, i, i, i,
-                                                             f]
+                                                             f, i]
     lib.lits_train_labels_i32.restype = None
-    lib.pad_nearest_i32.argtypes = [i32p] + [i] * 9 + [i32p, i, i, i]
+    lib.pad_nearest_i32.argtypes = [i32p] + [i] * 9 + [i32p, i, i, i, i]
     lib.pad_nearest_i32.restype = None
     lib.cfun_native_num_threads.argtypes = []
     lib.cfun_native_num_threads.restype = ctypes.c_int
@@ -99,6 +118,33 @@ def num_threads() -> int:
     return int(library().cfun_native_num_threads())
 
 
+class Team:
+    """One thread that makes native calls one at a time, each of its C
+    regions on an OpenMP team of ``threads`` threads.  The calls come from
+    any thread and wait for their turn in the order they came; a single
+    calling thread keeps one OpenMP thread pool alive, not one a caller."""
+
+    def __init__(self, threads: int):
+        if threads < 1:
+            raise ValueError(f"a team needs a thread, got {threads}")
+        self.threads = int(threads)
+        self._thread = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="native-team")
+
+    def run(self, fn, *args):
+        """``fn(*args, threads)`` on the team's thread; its result."""
+        return self._thread.submit(fn, *args, self.threads).result()
+
+
+def _call(team: Optional[Team], fn, *args) -> None:
+    """A C function that ends in a thread count: on ``team``, or here on
+    the default team (0)."""
+    if team is None:
+        fn(*args, 0)
+    else:
+        team.run(fn, *args)
+
+
 def _source(src_hwd: np.ndarray) -> Tuple[np.ndarray, int, int, int]:
     src = np.ascontiguousarray(src_hwd, np.float32)
     if src.ndim != 3 or min(src.shape) < 1:
@@ -116,15 +162,15 @@ def _out_shape(out_shape_dhw) -> Tuple[int, int, int]:
 
 
 def mold_resize(src_hwd: np.ndarray, out_shape_dhw,
-                normalize: bool) -> np.ndarray:
+                normalize: bool, team: Optional[Team] = None) -> np.ndarray:
     """[H, W, D] raw volume -> [Dt, Ht, Wt] float32 trilinear resize
     (half-pixel, no antialiasing), z-scored over the molded volume when
-    ``normalize``."""
+    ``normalize`` (whose sums do depend on the team's size)."""
     src, h0, w0, d0 = _source(src_hwd)
     dt, ht, wt = _out_shape(out_shape_dhw)
     dst = np.empty((dt, ht, wt), np.float32)
-    library().mold_resize_f32(src, h0, w0, d0, dst, dt, ht, wt,
-                              int(normalize))
+    _call(team, library().mold_resize_f32, src, h0, w0, d0, dst, dt, ht, wt,
+          int(normalize))
     return dst
 
 
@@ -271,7 +317,8 @@ def _lits_geometry(pad_shape_hwd, out_shape_dhw, offsets_hwd):
 
 
 def lits_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
-              offsets_hwd, hu_window) -> np.ndarray:
+              offsets_hwd, hu_window, team: Optional[Team] = None
+              ) -> np.ndarray:
     """The LiTS mold in one native pass: [H, W, D] raw volume ->
     [Dt, Ht, Wt] float32 in [0, 1]: the inverted HU window
     ``clip((x - mn) / (mx - mn), 0, 1)``, a virtual centre-pad to
@@ -282,8 +329,8 @@ def lits_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
         pad_shape_hwd, out_shape_dhw, offsets_hwd)
     mn, mx = (float(v) for v in hu_window)
     dst = np.empty((dt, ht, wt), np.float32)
-    library().lits_mold_f32(src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst,
-                            dt, ht, wt, mn, mx)
+    _call(team, library().lits_mold_f32, src, h0, w0, d0, ph, pw, pd, oh, ow,
+          od, dst, dt, ht, wt, mn, mx)
     return dst
 
 
@@ -365,7 +412,8 @@ def _labels_source(mask_hwd: np.ndarray) -> Tuple[np.ndarray, int, int, int]:
 
 
 def pad_nearest_labels(mask_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
-                       offsets_hwd) -> np.ndarray:
+                       offsets_hwd, team: Optional[Team] = None
+                       ) -> np.ndarray:
     """[H, W, D] int labels -> int32 [Dt, Ht, Wt]: a virtual centre-pad to
     ``pad_shape_hwd`` at ``offsets_hwd`` (pad voxels 0) and a nearest
     resize.  With the pad equal to the source shape and zero offsets it is
@@ -374,31 +422,35 @@ def pad_nearest_labels(mask_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
     (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
         pad_shape_hwd, out_shape_dhw, offsets_hwd)
     dst = np.empty((dt, ht, wt), np.int32)
-    library().pad_nearest_i32(src, h0, w0, d0, ph, pw, pd, oh, ow, od, dst,
-                              dt, ht, wt)
+    _call(team, library().pad_nearest_i32, src, h0, w0, d0, ph, pw, pd, oh,
+          ow, od, dst, dt, ht, wt)
     return dst
 
 
 def heart_train_mold(src_hwd: np.ndarray, out_shape_dhw,
-                     angle_deg: float) -> np.ndarray:
+                     angle_deg: float, team: Optional[Team] = None
+                     ) -> np.ndarray:
     """The heart train mold in one native pass: trilinear resize, the
     nearest (H, W) rotation by ``angle_deg`` (zero fill before the
     z-score), z-score over the molded volume, bf16 -> uint16 bits
     [Dt, Ht, Wt].  The statistics sum in double (NumPy's z-score in
     float32), so ~1e-4 of the voxels can differ from the NumPy chain by
-    one bf16 ulp; the index maps are exact."""
+    one bf16 ulp; the index maps are exact.  The sums are per-row
+    partials added in row order: the bits are the same at any team
+    size."""
     src, h0, w0, d0 = _source(src_hwd)
     dt, ht, wt = _out_shape(out_shape_dhw)
     dst = np.empty((dt, ht, wt), np.uint16)
     tmp = np.empty((dt, ht, wt), np.float32)
-    library().heart_train_mold_bf16(src, h0, w0, d0, dst, tmp, dt, ht, wt,
-                                    float(angle_deg))
+    _call(team, library().heart_train_mold_bf16, src, h0, w0, d0, dst, tmp,
+          dt, ht, wt, float(angle_deg))
     return dst
 
 
 def heart_train_mold_q8(src_hwd: np.ndarray, out_shape_dhw,
                         angle_deg: float, clip_sigma: float,
-                        scale: float) -> np.ndarray:
+                        scale: float, team: Optional[Team] = None
+                        ) -> np.ndarray:
     """The int8 train wire of :func:`heart_train_mold`: ``astype(int8)``
     of ``clip(bf16(z), +-clip_sigma) * scale``, the bf16 image quantized.
     Returns int8 [Dt, Ht, Wt]."""
@@ -406,27 +458,28 @@ def heart_train_mold_q8(src_hwd: np.ndarray, out_shape_dhw,
     dt, ht, wt = _out_shape(out_shape_dhw)
     dst = np.empty((dt, ht, wt), np.int8)
     tmp = np.empty((dt, ht, wt), np.float32)
-    library().heart_train_mold_q8(src, h0, w0, d0, dst, tmp, dt, ht, wt,
-                                  float(angle_deg), float(clip_sigma),
-                                  float(scale))
+    _call(team, library().heart_train_mold_q8, src, h0, w0, d0, dst, tmp,
+          dt, ht, wt, float(angle_deg), float(clip_sigma), float(scale))
     return dst
 
 
 def heart_train_labels(mask_hwd: np.ndarray, out_shape_dhw,
-                       angle_deg: float) -> np.ndarray:
+                       angle_deg: float, team: Optional[Team] = None
+                       ) -> np.ndarray:
     """Label companion of :func:`heart_train_mold`: the nearest resize and
     the same nearest rotation (zero fill) -> int32 [Dt, Ht, Wt]."""
     src, h0, w0, d0 = _labels_source(mask_hwd)
     dt, ht, wt = _out_shape(out_shape_dhw)
     dst = np.empty((dt, ht, wt), np.int32)
-    library().heart_train_labels_i32(src, h0, w0, d0, dst, dt, ht, wt,
-                                     float(angle_deg))
+    _call(team, library().heart_train_labels_i32, src, h0, w0, d0, dst, dt,
+          ht, wt, float(angle_deg))
     return dst
 
 
 def lits_train_mold_q8(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
                        offsets_hwd, angle_deg: float, hu_window,
-                       clip_sigma: float, scale: float) -> np.ndarray:
+                       clip_sigma: float, scale: float,
+                       team: Optional[Team] = None) -> np.ndarray:
     """The LiTS train mold to the int8 wire in one gather: the nearest
     rotation of the raw slices composed into the virtual-pad nearest
     resize, then the HU window, bf16 rounding and the quantization, once
@@ -438,14 +491,15 @@ def lits_train_mold_q8(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
         pad_shape_hwd, out_shape_dhw, offsets_hwd)
     mn, mx = (float(v) for v in hu_window)
     dst = np.empty((dt, ht, wt), np.int8)
-    library().lits_train_mold_q8(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
-                                 dst, dt, ht, wt, float(angle_deg), mn, mx,
-                                 float(clip_sigma), float(scale))
+    _call(team, library().lits_train_mold_q8, src, h0, w0, d0, ph, pw, pd,
+          oh, ow, od, dst, dt, ht, wt, float(angle_deg), mn, mx,
+          float(clip_sigma), float(scale))
     return dst
 
 
 def lits_train_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
-                    offsets_hwd, angle_deg: float, hu_window) -> np.ndarray:
+                    offsets_hwd, angle_deg: float, hu_window,
+                    team: Optional[Team] = None) -> np.ndarray:
     """The bf16 form of :func:`lits_train_mold_q8` (``train_wire_int8``
     off): bfloat16 bits as uint16 [Dt, Ht, Wt]."""
     src, h0, w0, d0 = _source(src_hwd)
@@ -453,19 +507,20 @@ def lits_train_mold(src_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
         pad_shape_hwd, out_shape_dhw, offsets_hwd)
     mn, mx = (float(v) for v in hu_window)
     dst = np.empty((dt, ht, wt), np.uint16)
-    library().lits_train_mold_bf16(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
-                                   dst, dt, ht, wt, float(angle_deg), mn, mx)
+    _call(team, library().lits_train_mold_bf16, src, h0, w0, d0, ph, pw, pd,
+          oh, ow, od, dst, dt, ht, wt, float(angle_deg), mn, mx)
     return dst
 
 
 def lits_train_labels(mask_hwd: np.ndarray, pad_shape_hwd, out_shape_dhw,
-                      offsets_hwd, angle_deg: float) -> np.ndarray:
+                      offsets_hwd, angle_deg: float,
+                      team: Optional[Team] = None) -> np.ndarray:
     """Label companion of the LiTS train molds: the same composed
     rotation + pad + nearest plan over the labels -> int32 [Dt, Ht, Wt]."""
     src, h0, w0, d0 = _labels_source(mask_hwd)
     (ph, pw, pd), (dt, ht, wt), (oh, ow, od) = _lits_geometry(
         pad_shape_hwd, out_shape_dhw, offsets_hwd)
     dst = np.empty((dt, ht, wt), np.int32)
-    library().lits_train_labels_i32(src, h0, w0, d0, ph, pw, pd, oh, ow, od,
-                                    dst, dt, ht, wt, float(angle_deg))
+    _call(team, library().lits_train_labels_i32, src, h0, w0, d0, ph, pw, pd,
+          oh, ow, od, dst, dt, ht, wt, float(angle_deg))
     return dst

@@ -101,6 +101,15 @@ def rank_devices(world: int, devices: Union[str, Sequence] = "cuda"
     return out
 
 
+def ranks_on_host() -> int:
+    """The ranks of the default process group on this host: torchrun's
+    local world, or the whole group (``parallel/launch.py`` starts every
+    rank on this host); 1 without a group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+
+
 def check_backend(backend: str, devices: Sequence[torch.device]) -> None:
     """NCCL takes one card a rank and no CPU rank; gloo takes either (the
     rehearsal of several ranks on one card)."""
@@ -131,8 +140,7 @@ def make_mesh(data: int, space: int = 1, *, backend: Optional[str] = None,
     rank = dist.get_rank()
     # this host's ranks: all of them, or torchrun's local ones
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    devs = rank_devices(int(os.environ.get("LOCAL_WORLD_SIZE", world)),
-                        devices)
+    devs = rank_devices(ranks_on_host(), devices)
     backend = backend or dist.get_backend()
     check_backend(backend, devs)
     data_groups = [dist.new_group([d * space + s for d in range(data)])

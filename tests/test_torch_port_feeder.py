@@ -2,13 +2,19 @@
 ``rotate_hw``, the native train molds (``csrc/host_ops.cc`` through
 ``cfun_tpu_torch/native.py`` against ``cfun_tpu.native``) and
 ``TrainFeeder`` (items, plans, epochs, a failing volume, the augment
-mode's mold cache).
+mode's mold cache), and the feeders' native team (items on teams of any
+size, the size rule, one region at a time in plan order).
 
 Criteria: ``rotate_hw`` order 0 exact, order 1 to 1e-6; every native op
 and every feeder item bit for bit (the bf16 wire by its uint16 bits);
 plans and epoch sequences equal.  The JAX package's native library is the
 one its own tests build.
 """
+
+import itertools
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -23,7 +29,8 @@ from cfun_tpu.ops.anchors import config_anchors
 from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import native as pnative
 from cfun_tpu_torch.data.datasets import SyntheticDataset
-from cfun_tpu_torch.data.feeder import TrainFeeder
+from cfun_tpu_torch.data.feeder import TrainFeeder, shared_team, team_size
+from cfun_tpu_torch.parallel.mesh import ranks_on_host
 from cfun_tpu_torch.data.resample import rotate_hw
 from cfun_tpu_torch.ops.augment import AugTrainBatch
 
@@ -267,3 +274,130 @@ def test_aug_mode_refuses_lits():
             feeder.make_item(0, 5.0, 0)
     finally:
         feeder.close()
+
+
+# ---- the feeders' team -----------------------------------------------------------
+
+@pytest.mark.parametrize("threads", [None, 1, 3])
+@pytest.mark.parametrize("case", ["heart_bf16", "heart_int8", "lits_int8"])
+def test_make_item_on_the_team_matches_jax(case, threads):
+    """An item molded on the process's shared team (None) or on a team of
+    1 or 3 threads is the JAX package's, bit for bit."""
+    overrides, host = ITEM_CASES[case]
+    jf, pf = _feeders(overrides, host)
+    if threads is None:
+        assert pf.team is shared_team()
+    else:
+        pf.team = pnative.Team(threads)
+    try:
+        _same_item(pf.make_item(1, 13.0, 77), jf.make_item(1, 13.0, 77))
+    finally:
+        jf.close()
+        pf.close()
+
+
+@pytest.mark.parametrize("cores,ranks,size", [
+    (8, 1, 6),   # one process on an 8-core host: the loop and the
+                 # workers' NumPy keep a core each
+    (8, 2, 2),   # two ranks on the host
+    (32, 4, 6),  # four ranks on a four-card host
+    (8, 4, 1),
+    (1, 1, 1),   # a host of one core still has a team
+    (2, 4, 1),
+])
+def test_team_size_rule(cores, ranks, size):
+    assert team_size(cores, ranks) == size
+
+
+def test_team_size_observes_the_process(monkeypatch):
+    import torch.distributed as dist
+
+    cores = len(os.sched_getaffinity(0))
+    assert ranks_on_host() == 1
+    assert team_size() == max(1, cores - 2)
+    # a rank of two on this host, as parallel/launch.py starts them
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert ranks_on_host() == 2
+    assert team_size() == max(1, cores // 2 - 2)
+    # torchrun's ranks on this host of a larger world
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert ranks_on_host() == 1
+
+
+class _Probe:
+    """The native library with every call counted: how many were in
+    flight at once, on which thread, and the marker voxel of its first
+    argument."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self._lock = threading.Lock()
+        self.live = self.most = 0
+        self.calls = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def probed(*args):
+            with self._lock:
+                self.live += 1
+                self.most = max(self.most, self.live)
+                self.calls.append((name, threading.current_thread().name,
+                                   float(args[0].flat[0])))
+            try:
+                return fn(*args)
+            finally:
+                with self._lock:
+                    self.live -= 1
+        return probed
+
+
+class _SlowFirst(SyntheticDataset):
+    """Each volume's first voxel marks its id; the first loads are the
+    slowest, so without an order the fourth item would reach the team
+    first.  Counts the loads in flight at once."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._loads = itertools.count()
+        self._lock = threading.Lock()
+        self.live = self.most = 0
+
+    def load_image(self, image_id):
+        with self._lock:
+            self.live += 1
+            self.most = max(self.most, self.live)
+        time.sleep(0.04 * max(0, 4 - next(self._loads)))
+        image = super().load_image(image_id).copy()
+        image.flat[0] = 1000.0 + image_id
+        with self._lock:
+            self.live -= 1
+        return image
+
+
+def test_items_take_the_team_one_at_a_time_in_plan_order(monkeypatch):
+    """At most one native call in flight, all on the team's thread, each
+    item's mold and labels back to back in the plan's order; the loads are
+    not held to that order (several run at once)."""
+    cfg = pconfig.tiny_config(compute_dtype="bfloat16")
+    data = _SlowFirst(cfg, n=3, seed=3, host_shape=(41, 47, 23))
+    feeder = TrainFeeder(data, cfg, config_anchors(cfg), seed=0,
+                         num_workers=4, prefetch=4)
+    probe = _Probe(pnative.library())
+    monkeypatch.setattr(pnative, "library", lambda: probe)
+    try:
+        items = list(feeder.epoch(5.0, 7, epoch_index=3))
+        ids, _ = feeder._plan(7, 3)
+    finally:
+        feeder.close()
+    assert len(items) == 7
+    assert data.most > 1
+    assert probe.most == 1
+    assert {thread for _, thread, _ in probe.calls} == {"native-team_0"}
+    names = [name for name, _, _ in probe.calls]
+    assert names == ["heart_train_mold_bf16", "heart_train_labels_i32"] * 7
+    molded = [int(mark) - 1000 for name, _, mark in probe.calls
+              if name == "heart_train_mold_bf16"]
+    assert molded == ids

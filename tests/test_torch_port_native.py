@@ -4,13 +4,15 @@ the C++ code) against the JAX package's (``cfun_tpu.native``), on the CPU.
 Both libraries are loaded in this one process (ctypes' RTLD_LOCAL keeps
 their symbols apart) and run with the same OpenMP thread count, so the
 molds, the double-precision sums of ``volume_stats`` and the unmolds are
-held bit for bit.  The sources have axes both up- and down-sampled and odd
+held bit for bit; the heart train molds also on teams (``native.Team``) of
+other sizes.  The sources have axes both up- and down-sampled and odd
 sizes.  Against the port's NumPy mold (``data/resample.py``), the native
 f32 resize agrees to 1e-5 of the source's largest magnitude (f32 rounding
 of a different operation order) and the int8 wire to one int8 step.
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import pytest
@@ -415,3 +417,73 @@ def test_unmold_nearest_labels_guard(axis, value, monkeypatch):
     lib.unmold_nearest_i16(lab, *lab.shape, mz, my, mx, out, my.size,
                            mx.size, mz.size)
     assert np.all(out == sentinel), "wrote with an out-of-range map"
+
+
+# ---- the heart train molds on teams of any size ---------------------------------
+
+@pytest.fixture(scope="module")
+def teams():
+    """Teams of 1 and 3 threads, and None: the library's default team."""
+    return {1: native.Team(1), 3: native.Team(3), "default": None}
+
+
+@pytest.mark.parametrize("angle", [0.0, 13.0])
+@pytest.mark.parametrize("src_shape,out_shape", SHAPES, ids=SHAPE_IDS)
+def test_heart_train_molds_are_the_same_on_any_team(src_shape, out_shape,
+                                                    angle, teams):
+    """The z-score's sums add per-row partials in row order, so the bf16
+    bits and the int8 wire are the same on teams of 1, 3 and the default
+    size, and the JAX package's."""
+    src = _source(src_shape, seed=3)
+    want = np.asarray(jnative.heart_train_mold(src, out_shape, angle)
+                      ).view(np.uint16)
+    want_q8 = jnative.heart_train_mold_q8(src, out_shape, angle, 5.0, SCALE)
+    for size, team in teams.items():
+        np.testing.assert_array_equal(
+            native.heart_train_mold(src, out_shape, angle, team=team), want,
+            err_msg=f"team {size}")
+        np.testing.assert_array_equal(
+            native.heart_train_mold_q8(src, out_shape, angle, 5.0, SCALE,
+                                       team=team), want_q8,
+            err_msg=f"team {size}")
+
+
+def _wide_source(shape, seed=0):
+    """A source on which the order of the z-score's double sums moves the
+    float32 mean and 1/std: every voxel near 1e5 with unit noise, so the
+    variance is the small difference of two large sums."""
+    rng = np.random.default_rng(seed)
+    return (1e5 + rng.normal(size=shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("angle", [0.0, 13.0])
+@pytest.mark.parametrize("src_shape,out_shape", SHAPES, ids=SHAPE_IDS)
+def test_heart_train_molds_keep_their_bits_on_a_wide_source(
+        src_shape, out_shape, angle, teams):
+    """On a source where a sum's order shows in float32, the bf16 bits and
+    the int8 wire are the same on teams of 1, 3 and the default size."""
+    src = _wide_source(src_shape, seed=5)
+    outs = {size: (native.heart_train_mold(src, out_shape, angle,
+                                           team=team),
+                   native.heart_train_mold_q8(src, out_shape, angle, 5.0,
+                                              SCALE, team=team))
+            for size, team in teams.items()}
+    want, want_q8 = outs.pop(1)
+    for size, (got, got_q8) in outs.items():
+        np.testing.assert_array_equal(got, want, err_msg=f"team {size}")
+        np.testing.assert_array_equal(got_q8, want_q8,
+                                      err_msg=f"team {size}")
+
+
+def test_team_runs_calls_on_its_own_thread(teams):
+    seen = []
+
+    def fn(a, threads):
+        seen.append((a, threads, threading.current_thread().name))
+        return a + 1
+
+    assert teams[3].run(fn, 41) == 42
+    assert seen[0][:2] == (41, 3)
+    assert seen[0][2].startswith("native-team")
+    with pytest.raises(ValueError, match="needs a thread"):
+        native.Team(0)
