@@ -109,7 +109,7 @@ class Config:
     safe_entry_conv: bool = True
     # on a mesh with space > 1: run the mask U-Net as the explicit
     # shard_map halo-exchange graph (ppermute halos + psum instance norms,
-    # parallel/halo.py::shard_map_unet) with crop D sharded over 'space',
+    # models/unet3d.py::shard_map_unet) with crop D sharded over 'space',
     # instead of leaving the crops' sharding to GSPMD propagation.  Needs
     # local D % 16 == 0 (four stride-2 levels).
     shard_unet_spatial: bool = False

@@ -55,9 +55,11 @@ import torch
 
 from cfun_tpu_torch import native
 from cfun_tpu_torch.config import Config
+from cfun_tpu_torch.data.batch import AugTrainBatch, TrainBatch, pack_labels_w
 from cfun_tpu_torch.data.mold import normalize_intensity, pad_offsets
 from cfun_tpu_torch.data.resample import rotate_hw
 from cfun_tpu_torch.parallel.mesh import ranks_on_host
+from cfun_tpu_torch.train.targets import build_rpn_targets
 from cfun_tpu_torch.utils.profiling import SpanRecorder
 
 
@@ -203,8 +205,6 @@ def _image_tensor(vol: np.ndarray) -> torch.Tensor:
 def _labels_tensor(labels: np.ndarray, cfg: Config) -> torch.Tensor:
     """Two 4-bit labels a byte along W when the classes fit and W is even
     (a quarter of int32's upload), else int8."""
-    from cfun_tpu_torch.train.step import pack_labels_w
-
     if cfg.num_classes <= 16 and cfg.image_shape[2] % 2 == 0:
         return torch.from_numpy(pack_labels_w(labels))
     return torch.from_numpy(labels.astype(np.int8))
@@ -312,8 +312,6 @@ class TrainFeeder:
         and re-z-scores, exact since the z-score is affine-invariant) and
         its labels on the wire, with ``fill`` the wire value of a raw 0
         voxel (what the rotation fills with).  Kept across epochs."""
-        from cfun_tpu_torch.ops.augment import AugTrainBatch
-
         cfg = self.cfg
         if cfg.pad_shape is not None:
             raise ValueError(
@@ -375,9 +373,6 @@ class TrainFeeder:
             turn.done()
 
     def _item(self, image_id: int, angle: float, seed: int, turn: _Turn):
-        from cfun_tpu_torch.train.step import TrainBatch
-        from cfun_tpu_torch.train.targets import build_rpn_targets
-
         cfg = self.cfg
         if cfg.augment_on_device:
             return self._unrotated_item(image_id, turn)._replace(

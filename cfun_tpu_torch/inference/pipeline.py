@@ -115,7 +115,7 @@ class Detector:
         self._win_event: Optional[torch.cuda.Event] = None
         # fast path: one packed int8 buffer (4- or 2-bit labels) crosses
         # to the host instead of three arrays
-        self._packed = cfg.fast_unmold and cfg.num_classes <= 16
+        self.packed = cfg.fast_unmold and cfg.num_classes <= 16
         if cfun.uses_overlap_paste(cfg):
             # the device's overlap paste ships one molded label volume
             self.labels_shape = tuple(cfg.image_shape)
@@ -128,10 +128,10 @@ class Detector:
         # the next one resizes.  Heart: quantized against sampled raw
         # stats (the device re-z-scores).  LiTS: the [0, 1] HU-windowed
         # values with a fixed affine, no stats pass.
-        self._pipelined = (native and self._packed and cfg.device_normalize
+        self._pipelined = (native and self.packed and cfg.device_normalize
                            and cfg.wire_image_dtype == "int8"
                            and cfg.pad_shape is None)
-        self._pipelined_lits = (native and self._packed
+        self._pipelined_lits = (native and self.packed
                                 and cfg.wire_image_dtype == "int8"
                                 and cfg.pad_shape is not None
                                 and cfg.intensity_norm == "hu_window")
@@ -338,23 +338,33 @@ class Detector:
                 self._slab_events[i].record(stream)
         return wire
 
-    @torch.inference_mode()
     def infer(self, wire: torch.Tensor, window: np.ndarray,
               nms: cfun.NmsFn = cfun.sorted_nms):
         """The device graph on a molded wire tensor: the packed int8 buffer
         on the fast path, else the :class:`cfun.InferOut`."""
+        return self.program(window, nms)(wire)
+
+    def program(self, window: np.ndarray, nms: cfun.NmsFn = cfun.sorted_nms):
+        """``wire -> outputs``: :meth:`infer`'s device graph, with
+        ``window`` put on the device here, so the callable makes no copy
+        from the host and a CUDA graph can capture it."""
         win = self._device_window(window)
-        out = cfun.infer_forward(self.params, wire, self.anchors, win,
-                                 self.cfg, nms=nms)
-        if self._packed:
-            return cfun.pack_fast_output(out, bits=self.pack_bits)
-        return out
+
+        @torch.inference_mode()
+        def run(wire: torch.Tensor):
+            out = cfun.infer_forward(self.params, wire, self.anchors, win,
+                                     self.cfg, nms=nms)
+            if self.packed:
+                return cfun.pack_fast_output(out, bits=self.pack_bits)
+            return out
+
+        return run
 
     def _dispatch(self, wire: torch.Tensor, window) -> _Pending:
         """Enqueue the device graph and the copy of its outputs to the
         host; waits for neither."""
         out = self.infer(wire, window)
-        if self._packed:
+        if self.packed:
             outs = [out]
         else:
             outs = [out.detections, out.det_valid,
@@ -410,7 +420,7 @@ class Detector:
             # .numpy() runs torch ops: outside the leaves, which run none
             host = [t.numpy() for t in pending.host]
             with span("unpack", req.id) as unpack:
-                if self._packed:
+                if self.packed:
                     detections, kept, masks = cfun.unpack_fast_output(
                         host[0], self.cfg.detection_max_instances,
                         self.labels_shape, bits=self.pack_bits)
@@ -442,8 +452,7 @@ class Detector:
         self.last_wire_bytes = {"up": s["mold"].counts["up"],
                                 "down": s["dispatch"].counts["down"]}
 
-    def detect(self, image_hwd: np.ndarray,
-               timings: Optional[dict] = None) -> Dict[str, np.ndarray]:
+    def detect(self, image_hwd: np.ndarray) -> Dict[str, np.ndarray]:
         """image_hwd: [H, W, D] or [H, W, D, 1] raw volume."""
         req = _Request(next(self._request_ids))
         wire, window, orig_shape = self._mold(req, image_hwd)
@@ -451,8 +460,6 @@ class Detector:
         self._wait(req, pending)
         result = self._finish(pending, orig_shape, window, req)
         self._publish(req)
-        if timings is not None:
-            timings.update(self.last_timings)
         return result
 
     def detect_stream(self, volumes):

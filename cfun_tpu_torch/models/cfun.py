@@ -33,9 +33,10 @@ from cfun_tpu_torch.models.rpn import apply_rpn
 from cfun_tpu_torch.ops.boxes import (apply_box_deltas, clip_boxes,
                                       denormalize_boxes, device_constant,
                                       normalize_boxes)
-from cfun_tpu_torch.ops.nms import nms_gather
+from cfun_tpu_torch.ops.nms import nms_gather, top_desc
 from cfun_tpu_torch.ops.sample3d import roi_align
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
+from cfun_tpu_torch.parallel.halo import gather_along, shard_h
 
 NmsFn = Callable[[torch.Tensor, torch.Tensor, float, int],
                  Tuple[torch.Tensor, torch.Tensor]]
@@ -45,13 +46,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def compute_dtype(cfg: Config) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
-
-
-def _top_desc(scores: torch.Tensor, k: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k, lower index first on ties (``lax.top_k``'s order)."""
-    values, order = torch.sort(scores, descending=True, stable=True)
-    return values[:k], order[:k]
 
 
 class TrunkOut(NamedTuple):
@@ -75,8 +69,6 @@ def apply_trunk(params: nn.Params, image: torch.Tensor, cfg: Config,
     every rank returns the dense ``TrunkOut``."""
     dt = compute_dtype(cfg)
     if group is not None:
-        from cfun_tpu_torch.parallel.halo import gather_along, shard_h
-
         image = shard_h(image, group)
     c2, c3 = apply_p3d(params["backbone"], image, dtype=dt, remat=remat,
                        group=group)
@@ -106,7 +98,7 @@ def propose(rpn_logits: torch.Tensor, rpn_deltas: torch.Tensor,
     deltas = rpn_deltas * device_constant(cfg.rpn_bbox_std, torch.float32,
                                           rpn_deltas.device)
     pre = min(cfg.pre_nms_limit, anchors.shape[0])
-    _, order = _top_desc(scores, pre)
+    _, order = top_desc(scores, pre)
     boxes = apply_box_deltas(anchors[order], deltas[order])
     d, h, w = cfg.image_shape
     boxes = clip_boxes(boxes, device_constant((0, 0, 0, d, h, w),
@@ -163,7 +155,7 @@ def refine_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
         (scores >= cfg.detection_min_confidence)
     # the classifier is binary, so one NMS pass covers the only FG class;
     # sort first so the NMS sees score-descending input
-    _, order = _top_desc(scores, scores.shape[0])
+    _, order = top_desc(scores, scores.shape[0])
     idx_s, kept = nms(refined[order], keep[order],
                       cfg.detection_nms_threshold,
                       cfg.detection_max_instances)

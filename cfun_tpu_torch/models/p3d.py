@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from cfun_tpu_torch import nn
+from cfun_tpu_torch.parallel.halo import halo_conv3d
 
 BACKBONE_DEPTHS = {"P3D19": (2, 3), "P3D35": (4, 5)}
 EXPANSION = 4
@@ -36,7 +37,6 @@ def trunk_conv(dtype, group=None):
     neighbour and runs as ``nn.conv3d``."""
     if group is None:
         return functools.partial(nn.conv3d, dtype=dtype)
-    from cfun_tpu_torch.parallel.halo import halo_conv3d
 
     def conv(p, x, stride=1):
         if p["w"].shape[3] == 1:

@@ -16,6 +16,7 @@ import torch
 
 from cfun_tpu_torch import nn
 from cfun_tpu_torch.models.p3d import trunk_conv
+from cfun_tpu_torch.parallel.halo import gather_along
 
 
 def _flatten(y: torch.Tensor, per_anchor: int) -> torch.Tensor:
@@ -36,7 +37,5 @@ def apply_rpn(params: nn.Params, feat: torch.Tensor, anchor_stride: int = 1,
     x = nn.relu(conv(params["shared"], feat, stride=anchor_stride))
     cls, bbox = conv(params["cls"], x), conv(params["bbox"], x)
     if group is not None:
-        from cfun_tpu_torch.parallel.halo import gather_along
-
         cls, bbox = gather_along(cls, group, 3), gather_along(bbox, group, 3)
     return _flatten(cls, 2).float(), _flatten(bbox, 6).float()

@@ -22,13 +22,13 @@ the phase forms (``heads.apply_mask_head``), the up-convs only where
 their input has at least ``PHASE_MIN_VOXELS`` voxels: below that the 8x
 wider conv is mostly padding.
 
-With a process group (``apply_unet(group=...)``) the input is one rank's
-shard of the crops split along D, and the same graph runs with halo
-convs and instance norms whose statistics are summed over the group
-(``parallel/halo.py``): the shard of the dense graph's output.  That
-graph takes the explicit up-convs and head, and the 1-channel entry conv
-as a halo conv (the JAX package's ``axis_name`` branch,
-``cfun_tpu/models/unet3d.py:213-277``).
+With a process group (``apply_unet(group=...)``; :func:`shard_map_unet`
+over a mesh's space ranks) the input is one rank's shard of the crops
+split along D, and the same graph runs with halo convs and instance norms
+whose statistics are summed over the group (``parallel/halo.py``): the
+shard of the dense graph's output.  That graph takes the explicit
+up-convs and head, and the 1-channel entry conv as a halo conv (the JAX
+package's ``axis_name`` branch, ``cfun_tpu/models/unet3d.py:213-277``).
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ import torch
 from cfun_tpu_torch import nn
 from cfun_tpu_torch.ops.fused_conv import (fused_conv3d, identity_affine,
                                            in_affine_from_sums)
+from cfun_tpu_torch.parallel.halo import (UNET_D_MULTIPLE, halo_conv3d,
+                                          instance_norm_sharded, shard_of)
 
 
 PHASE_MIN_VOXELS = 2048  # cfun_tpu/models/unet3d.py:258-272
@@ -92,9 +94,6 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
 
         inorm = nn.instance_norm
     else:
-        from cfun_tpu_torch.parallel.halo import (halo_conv3d,
-                                                  instance_norm_sharded)
-
         def conv(p, v, stride=1):
             return halo_conv3d(p, v, group, stride=stride, dtype=dtype)
 
@@ -182,6 +181,31 @@ def apply_unet(params: nn.Params, x: torch.Tensor, *, stage: str,
             up = nn.upsample_nearest(out.to(dtype))
             out = up + conv(params["out_upscale"], up)
     return out
+
+
+def shard_map_unet(mesh, params: nn.Params, crops: torch.Tensor, *,
+                   stage: str, dropout_rate: float = 0.0,
+                   dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """The mask U-Net with its crops' D split over the mesh's space ranks.
+
+    ``crops``: the whole [P, 1, D, H, W] crops, the same on every space
+    rank of the row; each rank takes its D shard and runs ``apply_unet``
+    with the space group (halo convs, summed instance-norm statistics).
+    The dropout keep masks are per channel, so the same masks serve every
+    shard.  Returns this rank's shard of the logits, [P, classes, D' /
+    space, H', W'] (D' = 2 D at 'finetune')."""
+    n_shards = mesh.space
+    d = crops.shape[2]
+    local_d = d // n_shards
+    if d % n_shards or local_d % UNET_D_MULTIPLE:
+        raise ValueError(
+            f"shard_map_unet: D={d} over {n_shards} 'space' shards gives "
+            f"local D={local_d}; need local D % 16 == 0 so all four "
+            "stride-2 context levels stay shard-aligned")
+    return apply_unet(params, shard_of(crops, mesh.space_group), stage=stage,
+                      dropout_rate=dropout_rate, dropout_masks=dropout_masks,
+                      dtype=dtype, group=mesh.space_group)
 
 
 def apply_unet_fused(params: nn.Params, x: torch.Tensor, *, stage: str,

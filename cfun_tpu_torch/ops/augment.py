@@ -34,16 +34,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from cfun_tpu_torch.config import Config
-from cfun_tpu_torch.models.cfun import _top_desc
+from cfun_tpu_torch.data.batch import (AugTrainBatch, TrainBatch,
+                                       unpack_labels_w)
 from cfun_tpu_torch.ops.boxes import device_constant
-
-
-class AugTrainBatch(NamedTuple):
-    """An unrotated molded example; the step augments it on the device."""
-    image: torch.Tensor  # [1, 1, D, H, W] wire type (bf16 / f32 / int8)
-    labels: torch.Tensor  # [D, H, W] int8 or [D, H, W/2] 4-bit packed
-    angle: float  # degrees (one an epoch), a float32 value
-    fill: float  # the wire value of a raw 0 voxel, a float32 value
+from cfun_tpu_torch.ops.nms import top_desc
 
 
 class AugmentDraws(NamedTuple):
@@ -113,7 +107,7 @@ def _random_keep(u: torch.Tensor, mask: torch.Tensor, k: int,
     ``mask`` (the ``k`` largest of ``u`` among them); with ``limit`` (a
     0-d tensor) only the first ``min(k, limit)`` by rank."""
     score = torch.where(mask, u, torch.full_like(u, -1.0))
-    top, idx = _top_desc(score, k)
+    top, idx = top_desc(score, k)
     ok = top >= 0.0
     if limit is not None:
         ok = ok & (torch.arange(k, device=u.device) < limit)
@@ -173,11 +167,9 @@ def rpn_targets_device(anchors: torch.Tensor, gt_box: torch.Tensor,
 
 
 def device_augment(batch: AugTrainBatch, anchors: torch.Tensor, cfg: Config,
-                   draws: AugmentDraws):
+                   draws: AugmentDraws) -> TrainBatch:
     """Rotate, re-z-score, GT box and RPN targets on the batch's device;
     returns a ``TrainBatch`` for ``train_forward``."""
-    from cfun_tpu_torch.train.step import TrainBatch, unpack_labels_w
-
     labels = batch.labels
     if labels.shape[-1] == cfg.image_shape[2] // 2:
         labels = unpack_labels_w(labels)

@@ -1,5 +1,6 @@
-"""Greedy 3D NMS over unsorted candidates, and the gather of its picks
-(port of ``cfun_tpu/ops/nms.py``).
+"""Greedy 3D NMS over unsorted candidates, the gather of its picks
+(port of ``cfun_tpu/ops/nms.py``), and the exact top-k that sorts the
+NMS sites' input and the training samplers' draws.
 
 ``masked_nms`` takes scores and picks the best live candidate ``max_out``
 times; on score-sorted input it keeps exactly what
@@ -17,6 +18,13 @@ import torch
 from cfun_tpu_torch.ops.boxes import pairwise_iou
 
 _NEG = -1e30
+
+
+def top_desc(scores: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k, lower index first on ties (``lax.top_k``'s order)."""
+    values, order = torch.sort(scores, descending=True, stable=True)
+    return values[:k], order[:k]
 
 
 def masked_nms(boxes: torch.Tensor, scores: torch.Tensor,

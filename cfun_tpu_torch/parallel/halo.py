@@ -1,5 +1,5 @@
-"""Halo-exchange convolutions for volumes split across the ranks of a
-process group (port of ``cfun_tpu/parallel/halo.py``).
+"""Halo-exchange convolutions and the other collectives for volumes split
+across the ranks of a process group (port of ``cfun_tpu/parallel/halo.py``).
 
 Each rank holds a shard of a channel-first volume ``[N, C, D, H, W]``
 split along one spatial axis: D (axis 2) for the mask U-Net's crops, H
@@ -9,10 +9,10 @@ brings them in (zeros at the outer edges, the zero padding a dense conv
 sees) and :func:`halo_conv3d` then runs the conv unpadded along that
 axis.  Instance norms sum their statistics over the group
 (:func:`instance_norm_sharded`), so the sharded U-Net
-(:func:`shard_map_unet`, ``models/unet3d.py::apply_unet(group=...)``)
-computes the dense one.  The trunk split along H (:func:`shard_h`,
-``models/p3d.py::trunk_conv``, ``models/cfun.py::apply_trunk(group=...)``)
-is what GSPMD makes of the JAX package's H sharding of the molded volume
+(``models/unet3d.py::shard_map_unet``) computes the dense one.  The trunk
+split along H (:func:`shard_h`, ``models/p3d.py::trunk_conv``,
+``models/cfun.py::apply_trunk(group=...)``) is what GSPMD makes of the JAX
+package's H sharding of the molded volume
 (``cfun_tpu/parallel/mesh.py::batch_sharding``); its outputs are gathered
 whole (:func:`gather_along`).
 
@@ -35,15 +35,11 @@ card under gloo, and one card per rank under NCCL.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
-
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from cfun_tpu_torch import nn
-from cfun_tpu_torch.train.losses import _edge_maps
 
 # the four stride-2 context levels of the U-Net: a shard's planes must
 # stay even at each (cfun_tpu/parallel/halo.py:94-102)
@@ -230,104 +226,3 @@ def shard_of(x: torch.Tensor, group, dim: int = 2) -> torch.Tensor:
                          f"split over {n} ranks")
     local = x.shape[dim] // n
     return x.narrow(dim, rank * local, local)
-
-
-def shard_map_unet(mesh, params: nn.Params, crops: torch.Tensor, *,
-                   stage: str, dropout_rate: float = 0.0,
-                   dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-                   dtype=torch.float32) -> torch.Tensor:
-    """The mask U-Net with its crops' D split over the mesh's space ranks.
-
-    ``crops``: the whole [P, 1, D, H, W] crops, the same on every space
-    rank of the row; each rank takes its D shard and runs ``apply_unet``
-    with the space group (halo convs, summed instance-norm statistics).
-    The dropout keep masks are per channel, so the same masks serve every
-    shard.  Returns this rank's shard of the logits, [P, classes, D' /
-    space, H', W'] (D' = 2 D at 'finetune')."""
-    from cfun_tpu_torch.models.unet3d import apply_unet
-
-    n_shards = mesh.space
-    d = crops.shape[2]
-    local_d = d // n_shards
-    if d % n_shards or local_d % UNET_D_MULTIPLE:
-        raise ValueError(
-            f"shard_map_unet: D={d} over {n_shards} 'space' shards gives "
-            f"local D={local_d}; need local D % 16 == 0 so all four "
-            "stride-2 context levels stay shard-aligned")
-    return apply_unet(params, shard_of(crops, mesh.space_group), stage=stage,
-                      dropout_rate=dropout_rate, dropout_masks=dropout_masks,
-                      dtype=dtype, group=mesh.space_group)
-
-
-def _roi_edge_se_sharded(t: torch.Tensor, logits: torch.Tensor, group,
-                         dmask: torch.Tensor, nvox: float,
-                         per_class: bool) -> torch.Tensor:
-    """One ROI's share of the edge error on this shard: t [C, L, h, w]
-    one-hot, logits [C, L, h, w]; the phantom centres (``dmask`` 0) are
-    left out."""
-    q = torch.softmax(logits.float(), dim=0)
-    # [C - 1, L + 2, h, w] with the halos -> [C - 1, 3, L, h - 2, w - 2]
-    g_true = _edge_maps(exchange_halo(t[1:], group, 1, dim=1))
-    g_pred = _edge_maps(exchange_halo(q[1:], group, 1, dim=1))
-    dm = dmask[None, None, :, None, None]
-    if per_class:
-        return torch.sum((g_pred - g_true) ** 2 * dm) / (nvox * 3.0)
-    eps = 1e-12
-    m_true = torch.sqrt(torch.sum(g_true ** 2, dim=1) + eps)
-    m_pred = torch.sqrt(torch.sum(g_pred ** 2, dim=1) + eps)
-    return torch.sum((m_pred - m_true) ** 2 * dm[:, 0]) / nvox
-
-
-def sharded_mask_losses(mesh, masks: torch.Tensor, pos_valid: torch.Tensor,
-                        mask_logits: torch.Tensor, cfg, *,
-                        edge_on: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mask CE and Sobel-edge losses with the crops' D split over the
-    mesh's space ranks (the companion of :func:`shard_map_unet`,
-    ``cfg.shard_unet_spatial``).
-
-    ``masks``: the whole one-hot targets [P, C, mD, mH, mW], the same on
-    every space rank (each takes its D shard); ``mask_logits``: this
-    rank's shard from :func:`shard_map_unet`.  The per-voxel work stays
-    local; the CE's numerator and denominator and each ROI's edge error
-    are summed over the space group.  Returns (mask_loss, edge_loss), the
-    same on every space rank and equal to ``losses.mask_loss`` /
-    ``losses.mask_edge_loss`` of the whole crops (edge_loss 0 without
-    ``edge_on``); differentiable under the module's rule."""
-    group = mesh.space_group
-    p, md = masks.shape[0], masks.shape[2]
-    if md % mesh.space:
-        raise ValueError(f"sharded_mask_losses: D={md} not divisible by "
-                         f"{mesh.space} 'space' shards")
-    t = shard_of(masks, group)
-    local_d = t.shape[2]
-    ql = mask_logits.float()
-    ce = torch.logsumexp(ql, dim=1) - torch.sum(ql * t, dim=1)
-    valid = pos_valid[:, None, None, None].to(ce.dtype)
-    if cfg.mask_class_weights is not None:
-        wvec = torch.tensor(cfg.mask_class_weights, dtype=ce.dtype,
-                            device=ce.device)
-        w = torch.sum(t * wvec[None, :, None, None, None], dim=1) * valid
-    else:
-        w = valid.expand(ce.shape)
-    num = all_reduce_sum(torch.sum(ce * w), group)
-    den = all_reduce_sum(torch.sum(w).detach(), group)
-    mask_l = num / torch.clamp(den, min=1.0)
-    if not edge_on:
-        return mask_l, torch.zeros((), dtype=torch.float32, device=ce.device)
-
-    # the dense edge maps are a VALID conv: global centres 1 .. D - 2.
-    # Each shard computes its local_d centres from 1-plane halos; the two
-    # phantom centres (global 0 and D - 1, fed zero halos) are masked out
-    start = dist.get_rank(group) * local_d
-    gidx = torch.arange(start, start + local_d, device=ce.device)
-    dmask = ((gidx >= 1) & (gidx <= md - 2)).to(torch.float32)
-    nvox = float((md - 2) * (t.shape[3] - 2) * (t.shape[4] - 2))
-    per_class = cfg.name == "lits"
-    se = torch.stack([
-        checkpoint(_roi_edge_se_sharded, t[i], mask_logits[i], group, dmask,
-                   nvox, per_class, use_reentrant=False)
-        for i in range(p)])
-    se = all_reduce_sum(se, group)
-    pos = pos_valid.to(se.dtype)
-    edge_l = torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
-    return mask_l, edge_l

@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from cfun_tpu_torch import weights
 from cfun_tpu_torch.config import Config
+from cfun_tpu_torch.data.batch import AugTrainBatch, TrainBatch
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
 from cfun_tpu_torch.train import step as tstep
 
@@ -164,7 +165,7 @@ def put_replicated(tree, mesh: Mesh):
     return tree
 
 
-def stack_batches(batches):
+def stack_batches(batches: Sequence[Union[TrainBatch, AugTrainBatch]]):
     """Per-volume ``TrainBatch`` / ``AugTrainBatch`` items stacked along a
     new leading axis (tensor fields stacked, the others as tuples), the
     item type kept: the input of ``train/step.py::

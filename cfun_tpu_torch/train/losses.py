@@ -14,19 +14,23 @@ As in the JAX package, the heart edge loss uses the gx/gy/gz magnitude
 (the reference repeats gx, model.py:969-972), and the LiTS form
 (``per_class=True``) the per-class MSE of the raw components.  Every
 masked mean divides by max(count, 1), so an empty selection gives 0, the
-reference's zero-loss fallbacks (model.py:871-877).
+reference's zero-loss fallbacks (model.py:871-877).  The mask losses
+over crops split along D: :func:`sharded_mask_losses`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from cfun_tpu_torch.config import Config
+from cfun_tpu_torch.parallel.halo import (all_reduce_sum, exchange_halo,
+                                          shard_of)
 
 
 def _smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -158,6 +162,80 @@ def mask_edge_loss(target_onehot: torch.Tensor, pos_valid: torch.Tensor,
         for i in range(target_onehot.shape[0])])
     pos = pos_valid.to(se.dtype)
     return torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
+
+
+def _roi_edge_se_sharded(t: torch.Tensor, logits: torch.Tensor, group,
+                         dmask: torch.Tensor, nvox: float,
+                         per_class: bool) -> torch.Tensor:
+    """One ROI's share of the edge error on this shard: t [C, L, h, w]
+    one-hot, logits [C, L, h, w]; the phantom centres (``dmask`` 0) are
+    left out."""
+    q = torch.softmax(logits.float(), dim=0)
+    # [C - 1, L + 2, h, w] with the halos -> [C - 1, 3, L, h - 2, w - 2]
+    g_true = _edge_maps(exchange_halo(t[1:], group, 1, dim=1))
+    g_pred = _edge_maps(exchange_halo(q[1:], group, 1, dim=1))
+    dm = dmask[None, None, :, None, None]
+    if per_class:
+        return torch.sum((g_pred - g_true) ** 2 * dm) / (nvox * 3.0)
+    eps = 1e-12
+    m_true = torch.sqrt(torch.sum(g_true ** 2, dim=1) + eps)
+    m_pred = torch.sqrt(torch.sum(g_pred ** 2, dim=1) + eps)
+    return torch.sum((m_pred - m_true) ** 2 * dm[:, 0]) / nvox
+
+
+def sharded_mask_losses(mesh, masks: torch.Tensor, pos_valid: torch.Tensor,
+                        mask_logits: torch.Tensor, cfg: Config, *,
+                        edge_on: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask CE and Sobel-edge losses with the crops' D split over the
+    mesh's space ranks (the companion of
+    ``models/unet3d.py::shard_map_unet``, ``cfg.shard_unet_spatial``).
+
+    ``masks``: the whole one-hot targets [P, C, mD, mH, mW], the same on
+    every space rank (each takes its D shard); ``mask_logits``: this
+    rank's shard from ``shard_map_unet``.  The per-voxel work stays
+    local; the CE's numerator and denominator and each ROI's edge error
+    are summed over the space group.  Returns (mask_loss, edge_loss), the
+    same on every space rank and equal to :func:`mask_loss` /
+    :func:`mask_edge_loss` of the whole crops (edge_loss 0 without
+    ``edge_on``); differentiable under ``parallel/halo.py``'s rule."""
+    group = mesh.space_group
+    p, md = masks.shape[0], masks.shape[2]
+    if md % mesh.space:
+        raise ValueError(f"sharded_mask_losses: D={md} not divisible by "
+                         f"{mesh.space} 'space' shards")
+    t = shard_of(masks, group)
+    local_d = t.shape[2]
+    ql = mask_logits.float()
+    ce = torch.logsumexp(ql, dim=1) - torch.sum(ql * t, dim=1)
+    valid = pos_valid[:, None, None, None].to(ce.dtype)
+    if cfg.mask_class_weights is not None:
+        wvec = torch.tensor(cfg.mask_class_weights, dtype=ce.dtype,
+                            device=ce.device)
+        w = torch.sum(t * wvec[None, :, None, None, None], dim=1) * valid
+    else:
+        w = valid.expand(ce.shape)
+    num = all_reduce_sum(torch.sum(ce * w), group)
+    den = all_reduce_sum(torch.sum(w).detach(), group)
+    mask_l = num / torch.clamp(den, min=1.0)
+    if not edge_on:
+        return mask_l, torch.zeros((), dtype=torch.float32, device=ce.device)
+
+    # the dense edge maps are a VALID conv: global centres 1 .. D - 2.
+    # Each shard computes its local_d centres from 1-plane halos; the two
+    # phantom centres (global 0 and D - 1, fed zero halos) are masked out
+    start = dist.get_rank(group) * local_d
+    gidx = torch.arange(start, start + local_d, device=ce.device)
+    dmask = ((gidx >= 1) & (gidx <= md - 2)).to(torch.float32)
+    nvox = float((md - 2) * (t.shape[3] - 2) * (t.shape[4] - 2))
+    per_class = cfg.name == "lits"
+    se = torch.stack([
+        checkpoint(_roi_edge_se_sharded, t[i], mask_logits[i], group, dmask,
+                   nvox, per_class, use_reentrant=False)
+        for i in range(p)])
+    se = all_reduce_sum(se, group)
+    pos = pos_valid.to(se.dtype)
+    edge_l = torch.sum(se * pos) / torch.clamp(torch.sum(pos), min=1.0)
+    return mask_l, edge_l
 
 
 def weighted_total(losses: Dict[str, torch.Tensor],

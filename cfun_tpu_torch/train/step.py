@@ -25,8 +25,10 @@ On a mesh (``parallel/mesh.py``) the forward takes the rank's ``Mesh``:
 with more than one space rank the trunk is split along H over the row's
 ranks (``models/cfun.py::apply_trunk(group=...)``), and with
 ``cfg.shard_unet_spatial`` the mask U-Net and its losses along the crops'
-D (``parallel/halo.py``).  ``batched_train_forward`` is the mean over
-several volumes on one device, the dense reference of the mesh step.
+D (``models/unet3d.py::shard_map_unet``,
+``train/losses.py::sharded_mask_losses``).  ``batched_train_forward`` is
+the mean over several volumes on one device, the dense reference of the
+mesh step.
 """
 
 from __future__ import annotations
@@ -40,15 +42,15 @@ from torch.utils.checkpoint import checkpoint
 from cfun_tpu_torch import nn
 from cfun_tpu_torch import weights
 from cfun_tpu_torch.config import Config
+from cfun_tpu_torch.data.batch import (AugTrainBatch, TrainBatch,
+                                       unpack_labels_w)
 from cfun_tpu_torch.models import cfun
 from cfun_tpu_torch.models.heads import apply_classifier, apply_mask_head
-from cfun_tpu_torch.models.unet3d import dropout_mask_shapes
-from cfun_tpu_torch.ops.augment import (AugmentDraws, AugTrainBatch,
-                                        device_augment, draw_augment)
+from cfun_tpu_torch.models.unet3d import dropout_mask_shapes, shard_map_unet
+from cfun_tpu_torch.ops.augment import (AugmentDraws, device_augment,
+                                        draw_augment)
 from cfun_tpu_torch.ops.sample3d import roi_align
 from cfun_tpu_torch.ops.sorted_nms import sorted_nms
-from cfun_tpu_torch.parallel.halo import (shard_map_unet,
-                                          sharded_mask_losses)
 from cfun_tpu_torch.train import losses as L
 from cfun_tpu_torch.train.targets import (TargetDraws, detection_targets,
                                           draw_targets)
@@ -58,36 +60,6 @@ LOSS_NAMES = ("rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
               "mrcnn_bbox_loss", "mrcnn_mask_loss", "mrcnn_mask_edge_loss")
 # the spans of a step given no recorder: timed, kept nowhere
 _UNLOGGED = SpanRecorder()
-
-
-class TrainBatch(NamedTuple):
-    """One molded training example (batch dim 1 on the image)."""
-    # [1, 1, D, H, W]: the z-scored volume in the compute dtype, or int8
-    # (the train wire, ``Config.train_wire_int8``)
-    image: torch.Tensor
-    rpn_match: torch.Tensor    # [A] int8 in {-1, 0, 1}
-    rpn_deltas: torch.Tensor   # [A, 6] float32 (dense per-anchor targets)
-    gt_box_norm: torch.Tensor  # [6] normalized whole-organ box
-    # [D, H, W] int class labels, or [D, H, W/2] uint8 with two 4-bit
-    # labels per byte along W (pack_labels_w)
-    labels: torch.Tensor
-
-    def to(self, device) -> "TrainBatch":
-        return TrainBatch(*(t.to(device) for t in self))
-
-
-def pack_labels_w(labels: np.ndarray) -> np.ndarray:
-    """Host-side: [.., W] int labels (< 16) -> [.., W/2] uint8, low nibble
-    = left half of W, high nibble = right half."""
-    half = labels.shape[-1] // 2
-    l8 = labels.astype(np.uint8)
-    return l8[..., :half] | (l8[..., half:] << 4)
-
-
-def unpack_labels_w(packed: torch.Tensor) -> torch.Tensor:
-    """Device-side inverse of :func:`pack_labels_w` -> int32 [.., W]."""
-    u = packed.to(torch.uint8)
-    return torch.cat([u & 0xF, u >> 4], dim=-1).to(torch.int32)
 
 
 class TrainDraws(NamedTuple):
@@ -327,7 +299,7 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
     ``mesh.space > 1`` the trunk runs split along H over the row's ranks
     (after the device augment of an ``AugTrainBatch``, on the whole
     volume), and with ``cfg.shard_unet_spatial`` too the mask U-Net and
-    its losses split along D (``parallel/halo.py``); the results are the
+    its losses split along D; the results are the
     row's, the same on each of its ranks.  ``taken``: a dict that receives
     the proposal layer's NMS call as ``"nms"`` (its score-sorted boxes,
     valid, threshold, idx and keep) and the detection targets as
@@ -408,7 +380,7 @@ def train_forward(params, batch: TrainBatch, anchors: torch.Tensor,
             mask_logits = mask_fn(params["mask"], crops)
         if shard_spatial:
             # the targets, the CE and the edge maps stay split too
-            mask_l, edge_l = sharded_mask_losses(
+            mask_l, edge_l = L.sharded_mask_losses(
                 mesh, tgt.masks, tgt.pos_valid, mask_logits, cfg,
                 edge_on=edge_on)
             out["mrcnn_mask_loss"] = mask_l

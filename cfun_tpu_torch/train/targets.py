@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from cfun_tpu_torch.config import Config
-from cfun_tpu_torch.models.cfun import _top_desc
 from cfun_tpu_torch.ops.boxes import (box_refinement, device_constant,
                                       pairwise_iou)
+from cfun_tpu_torch.ops.nms import top_desc
 from cfun_tpu_torch.ops.sample3d import one_hot_crop
 
 
@@ -120,7 +120,7 @@ def _masked_random_topk(uniform: torch.Tensor, candidate: torch.Tensor,
     keff = min(k, candidate.shape[0])
     score = torch.where(candidate, uniform,
                         torch.full_like(uniform, -1.0))
-    top, idx = _top_desc(score, keff)
+    top, idx = top_desc(score, keff)
     ok = top >= 0.0
     if keff < k:
         idx = torch.cat([idx, idx.new_zeros(k - keff)])

@@ -269,27 +269,15 @@ def segment_report(seconds: float, flops: float,
 
 def packed_infer_program(det, vol, molded=None):
     """(fn, args): the device program ``Detector.detect`` runs on one
-    volume, ``cfun.infer_forward`` + ``pack_fast_output`` on its molded
-    wire, returning the packed int8 buffer.  ``det.mold(vol)`` runs once
-    here (or ``molded``, a (wire, window) pair, is taken), and the window
-    goes to the device here too: its upload records an event on a
-    page-locked buffer, which a captured graph must not hold."""
-    from cfun_tpu_torch.models import cfun
-
-    if not det._packed:
+    volume (``Detector.program``), returning the packed int8 buffer.
+    ``det.mold(vol)`` runs once here (or ``molded``, a (wire, window) pair,
+    is taken), and the window goes to the device here too, outside what a
+    CUDA graph captures."""
+    if not det.packed:
         raise ValueError("packed_infer_program: the detector's config has "
                          "no packed output (fast_unmold, <= 16 classes)")
     wire, window = molded if molded is not None else det.mold(vol)[:2]
-    win = det._device_window(window)
-    params, anchors, cfg, bits = det.params, det.anchors, det.cfg, \
-        det.pack_bits
-
-    @torch.inference_mode()
-    def program(image):
-        out = cfun.infer_forward(params, image, anchors, win, cfg)
-        return cfun.pack_fast_output(out, bits=bits)
-
-    return program, (wire,)
+    return det.program(window), (wire,)
 
 
 def packed_infer_chain(det, vol, *, reps: int = 3, chain: int = 8,

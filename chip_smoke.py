@@ -852,7 +852,7 @@ def train_batch(cfg, molded, labels, device, seed=0):
     from cfun_tpu_torch.data.feeder import np_mask_to_extended_bbox
     from cfun_tpu_torch.models.cfun import compute_dtype
     from cfun_tpu_torch.ops.anchors import config_anchors
-    from cfun_tpu_torch.train.step import TrainBatch, pack_labels_w
+    from cfun_tpu_torch.data.batch import TrainBatch, pack_labels_w
     from cfun_tpu_torch.train.targets import build_rpn_targets
 
     gt_box = np_mask_to_extended_bbox(labels)

@@ -42,6 +42,7 @@ from cfun_tpu.train.step import pack_labels_w as jax_pack_labels_w
 from cfun_tpu.train.step import train_forward_any as jax_forward_any
 from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import weights
+from cfun_tpu_torch.data.batch import AugTrainBatch, unpack_labels_w
 from cfun_tpu_torch.data.datasets import SyntheticDataset
 from cfun_tpu_torch.data.feeder import TrainFeeder, np_mask_to_extended_bbox
 from cfun_tpu_torch import nn as pnn
@@ -146,10 +147,9 @@ def test_device_augment_angle_zero_reproduces_host_batch():
     labels = _labels_volume((d, h, w))
     m, s = molded.mean(), molded.std()
     y = (molded - m) / s
-    aug = paug.AugTrainBatch(image=torch.from_numpy(y)[None, None],
-                             labels=torch.from_numpy(jax_pack_labels_w(
-                                 labels)),
-                             angle=0.0, fill=float(-m / s))
+    aug = AugTrainBatch(image=torch.from_numpy(y)[None, None],
+                        labels=torch.from_numpy(jax_pack_labels_w(labels)),
+                        angle=0.0, fill=float(-m / s))
     anchors = torch.from_numpy(config_anchors(cfg).astype(np.float32))
     draws = tstep.draw_train(cfg.replace(augment_on_device=True),
                              torch.Generator().manual_seed(7), "cpu")
@@ -184,7 +184,7 @@ def test_device_augment_matches_host_feeder_at_angle_zero():
     np.testing.assert_allclose(batch.image.numpy(), host_item.image.numpy(),
                                atol=2e-5)
     np.testing.assert_array_equal(
-        batch.labels.numpy(), tstep.unpack_labels_w(host_item.labels).numpy())
+        batch.labels.numpy(), unpack_labels_w(host_item.labels).numpy())
     np.testing.assert_allclose(batch.gt_box_norm.numpy(),
                                host_item.gt_box_norm.numpy(), atol=1e-6)
 
@@ -235,9 +235,9 @@ def _aug_step_ab(jax_step, angle, record=None):
         augment=jax_augment_draws(k_aug, pcfg.num_anchors))
     init, _ = tstep.make_train_step(pcfg, config_anchors(jcfg))
     state = init(weights.params_from_numpy(jp, pcfg))
-    pbatch = paug.AugTrainBatch(image=torch.from_numpy(y)[None, None],
-                                labels=torch.from_numpy(packed),
-                                angle=angle, fill=float(fill))
+    pbatch = AugTrainBatch(image=torch.from_numpy(y)[None, None],
+                           labels=torch.from_numpy(packed),
+                           angle=angle, fill=float(fill))
     mp = pytest.MonkeyPatch()
     if record is not None:
         def roi(*args, **kw):

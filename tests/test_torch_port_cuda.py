@@ -290,7 +290,7 @@ def _organ_train_batch(cfg, params, device):
     from cfun_tpu_torch.data.feeder import np_mask_to_extended_bbox
     from cfun_tpu_torch.models import cfun
     from cfun_tpu_torch.ops.anchors import config_anchors
-    from cfun_tpu_torch.train.step import TrainBatch
+    from cfun_tpu_torch.data.batch import TrainBatch
     from cfun_tpu_torch.train.targets import build_rpn_targets
 
     d, h, w = cfg.image_shape

@@ -28,11 +28,11 @@ from cfun_tpu.data.resample import rotate_hw as jax_rotate_hw
 from cfun_tpu.ops.anchors import config_anchors
 from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import native as pnative
+from cfun_tpu_torch.data.batch import AugTrainBatch
 from cfun_tpu_torch.data.datasets import SyntheticDataset
 from cfun_tpu_torch.data.feeder import TrainFeeder, shared_team, team_size
 from cfun_tpu_torch.parallel.mesh import ranks_on_host
 from cfun_tpu_torch.data.resample import rotate_hw
-from cfun_tpu_torch.ops.augment import AugTrainBatch
 
 ANGLES = (0.0, 90.0, 20.0, -20.0, 13.0)
 LITS = dict(name="lits", num_classes=3, backbone="P3D35",

@@ -1,6 +1,7 @@
-"""The port's halo primitives, sharded U-Net and sharded mask losses
-(``cfun_tpu_torch/parallel/halo.py``) against the JAX package's
-(``cfun_tpu/parallel/halo.py`` under ``jax.shard_map``, tests/
+"""The port's halo primitives (``cfun_tpu_torch/parallel/halo.py``),
+sharded U-Net (``models/unet3d.py::shard_map_unet``) and sharded mask
+losses (``train/losses.py::sharded_mask_losses``) against the JAX
+package's (``cfun_tpu/parallel/halo.py`` under ``jax.shard_map``, tests/
 test_halo.py) and against the port's own dense graph, on the CPU.
 
 The port's side runs in one launch of four gloo ranks on the CPU
@@ -51,8 +52,7 @@ from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import nn as pnn
 from cfun_tpu_torch import weights
 from cfun_tpu_torch.models import cfun as pcfun
-from cfun_tpu_torch.models.unet3d import apply_unet
-from cfun_tpu_torch.parallel import halo
+from cfun_tpu_torch.models.unet3d import apply_unet, shard_map_unet
 from cfun_tpu_torch.parallel.launch import launch
 from cfun_tpu_torch.train import losses as L
 from torch_port_params import jax_params
@@ -281,8 +281,8 @@ def test_sharded_unet_matches_dense(ranks, unet_dense, stage):
 def test_sharded_unet_rejects_misaligned_depth(inputs):
     mesh = types.SimpleNamespace(space=4, space_group=None)
     with pytest.raises(ValueError, match="local D"):
-        halo.shard_map_unet(mesh, R.unet_params(inputs["unet"]),
-                            torch.zeros(1, 1, 32, 32, 32), stage="beginning")
+        shard_map_unet(mesh, R.unet_params(inputs["unet"]),
+                       torch.zeros(1, 1, 32, 32, 32), stage="beginning")
 
 
 @pytest.mark.parametrize("name", ["heart", "lits"])

@@ -2,6 +2,7 @@
 neither JAX nor any module of the JAX package.  A subprocess, because this
 test process has imported JAX already (tests/conftest.py)."""
 
+import ast
 import os
 import re
 import subprocess
@@ -41,7 +42,8 @@ names = {m.name for m in pkgutil.walk_packages(cfun_tpu_torch.__path__,
 new = ["cfun_tpu_torch.train", "cfun_tpu_torch.train.losses",
        "cfun_tpu_torch.train.targets", "cfun_tpu_torch.train.step",
        "cfun_tpu_torch.train.loop", "cfun_tpu_torch.data.feeder",
-       "cfun_tpu_torch.ops.augment", "cfun_tpu_torch.utils.logging",
+       "cfun_tpu_torch.ops.augment", "cfun_tpu_torch.data.batch",
+       "cfun_tpu_torch.utils.logging",
        "cfun_tpu_torch.utils.checkpoint", "cfun_tpu_torch.parallel",
        "cfun_tpu_torch.parallel.mesh", "cfun_tpu_torch.parallel.halo",
        "cfun_tpu_torch.parallel.launch"]
@@ -148,3 +150,76 @@ def test_port_sources_name_no_native_dir():
                     offenders.append(f"{os.path.relpath(path, ROOT)}:{i}")
     assert any(p.endswith("host_ops.cc") for p in files)
     assert offenders == []
+
+
+def _port_imports():
+    """{module: {package module it imports}} over every ``.py`` under
+    ``cfun_tpu_torch/`` (imports at any depth, each named by the deepest
+    module it names), and the (module, line, target) of each import made
+    inside a function body."""
+    pkg = os.path.join(ROOT, "cfun_tpu_torch")
+    paths = {}
+    for d, dirs, names in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for n in names:
+            if n.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, n), ROOT)[:-3]
+                parts = rel.split(os.sep)
+                if parts[-1] == "__init__":
+                    parts.pop()
+                paths[".".join(parts)] = os.path.join(d, n)
+
+    def module_of(name):
+        while name not in paths:
+            name = name.rsplit(".", 1)[0]
+        return name
+
+    graph, deferred = {m: set() for m in paths}, set()
+
+    def visit(mod, node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                targets = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom):
+                assert child.level == 0, f"{mod}:{child.lineno} is relative"
+                targets = [f"{child.module}.{a.name}" for a in child.names]
+            else:
+                targets = []
+            for t in targets:
+                if t.split(".")[0] == "cfun_tpu_torch":
+                    graph[mod].add(module_of(t))
+                    if in_function:
+                        deferred.add((mod, child.lineno, module_of(t)))
+            visit(mod, child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    for mod, path in paths.items():
+        with open(path) as f:
+            visit(mod, ast.parse(f.read()), False)
+    return graph, deferred
+
+
+def test_port_module_graph_points_one_way():
+    """The port's modules import one another without a cycle, and at
+    module top: a function imports a module of the package only in the
+    CLIs (``cli/``) or to load the native build (``_build``)."""
+    graph, deferred = _port_imports()
+    assert len(graph) > 40
+    state, cycles = {}, []
+
+    def walk(mod, path):
+        state[mod] = "open"
+        for dep in sorted(graph[mod] - {mod}):
+            if state.get(dep) == "open":
+                cycles.append(path[path.index(dep):] + [dep])
+            elif dep not in state:
+                walk(dep, path + [dep])
+        state[mod] = "done"
+
+    for mod in sorted(graph):
+        if mod not in state:
+            walk(mod, [mod])
+    assert cycles == []
+    assert sorted((m, line, t) for m, line, t in deferred
+                  if not m.startswith("cfun_tpu_torch.cli")
+                  and t != "cfun_tpu_torch._build") == []

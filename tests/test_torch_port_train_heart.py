@@ -29,6 +29,7 @@ from cfun_tpu.config import tiny_config
 from cfun_tpu.ops.anchors import config_anchors
 from cfun_tpu_torch import config as pconfig
 from cfun_tpu_torch import weights
+from cfun_tpu_torch.data.batch import pack_labels_w
 from cfun_tpu_torch.train import step as tstep
 from torch_port_params import jax_params
 import torch_port_train as T
@@ -174,7 +175,7 @@ def test_packed_labels_equivalent(tiny):
     cfg = tiny["pcfg"]
     b = T.port_batch(tiny["batches"][0])
     packed = b._replace(labels=torch.from_numpy(
-        tstep.pack_labels_w(tiny["batches"][0]["labels"])))
+        pack_labels_w(tiny["batches"][0]["labels"])))
     assert packed.labels.shape[-1] == cfg.image_shape[2] // 2
     params = weights.params_from_numpy(tiny["jp"], cfg)
     draws = _draws(cfg, 4)

@@ -38,7 +38,7 @@ from cfun_tpu_torch.ops import sample3d as tsample
 from cfun_tpu_torch.ops.anchors import config_anchors as port_anchors
 from cfun_tpu_torch.train import losses as TL
 from cfun_tpu_torch.train import targets as ttargets
-from cfun_tpu_torch.train.step import pack_labels_w, unpack_labels_w
+from cfun_tpu_torch.data.batch import pack_labels_w, unpack_labels_w
 from torch_port_params import jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-6)

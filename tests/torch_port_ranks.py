@@ -10,11 +10,14 @@ import numpy as np
 import torch
 
 from cfun_tpu_torch import weights
+from cfun_tpu_torch.data.batch import TrainBatch
+from cfun_tpu_torch.models.unet3d import shard_map_unet
 from cfun_tpu_torch.ops import sorted_nms as k1
 from cfun_tpu_torch.ops.anchors import config_anchors
 from cfun_tpu_torch.parallel import halo
 from cfun_tpu_torch.parallel.mesh import make_mesh, make_parallel_train_step
 from cfun_tpu_torch.train import step as tstep
+from cfun_tpu_torch.train.losses import sharded_mask_losses
 from cfun_tpu_torch.train.targets import TargetDraws
 
 
@@ -82,8 +85,7 @@ def unet_shard(mesh, unet_np, crops, cot, stage):
     leaves = weights._leaves(params)
     for leaf in leaves.values():
         leaf.requires_grad_(True)
-    y = halo.shard_map_unet(mesh, params, torch.from_numpy(crops),
-                            stage=stage)
+    y = shard_map_unet(mesh, params, torch.from_numpy(crops), stage=stage)
     c = halo.shard_of(torch.from_numpy(cot), mesh.space_group)
     grads = torch.autograd.grad(torch.sum(y * c), list(leaves.values()),
                                 allow_unused=True)
@@ -97,7 +99,7 @@ def mask_losses_shard(mesh, cfg, masks, pos_valid, logits):
     2 x edge with respect to that shard."""
     lg = halo.shard_of(torch.from_numpy(logits), mesh.space_group).clone()
     lg.requires_grad_(True)
-    ml, el = halo.sharded_mask_losses(
+    ml, el = sharded_mask_losses(
         mesh, torch.from_numpy(masks), torch.from_numpy(pos_valid), lg, cfg,
         edge_on=True)
     (g,) = torch.autograd.grad((ml + 2.0 * el) / mesh.space, [lg])
@@ -153,11 +155,11 @@ def halo_suite(mesh, x, cot4, cot2, convs, xh, coth4, coth2, convs_h,
 def port_batch(b):
     """A ``TrainBatch`` of CPU tensors from tests/torch_port_train.py's
     numpy dict."""
-    return tstep.TrainBatch(image=torch.from_numpy(b["image"])[None, None],
-                            rpn_match=torch.from_numpy(b["rpn_match"]),
-                            rpn_deltas=torch.from_numpy(b["rpn_deltas"]),
-                            gt_box_norm=torch.from_numpy(b["gt_box_norm"]),
-                            labels=torch.from_numpy(b["labels"]))
+    return TrainBatch(image=torch.from_numpy(b["image"])[None, None],
+                      rpn_match=torch.from_numpy(b["rpn_match"]),
+                      rpn_deltas=torch.from_numpy(b["rpn_deltas"]),
+                      gt_box_norm=torch.from_numpy(b["gt_box_norm"]),
+                      labels=torch.from_numpy(b["labels"]))
 
 
 def draws_from_numpy(d):

@@ -21,10 +21,11 @@ from cfun_tpu.train.step import apply_update as jax_apply_update
 from cfun_tpu.train.step import make_train_step as jax_make_train_step
 from cfun_tpu.train.step import train_forward as jax_train_forward
 from cfun_tpu_torch import weights
+from cfun_tpu_torch.data.batch import TrainBatch
 from cfun_tpu_torch.data.feeder import np_mask_to_extended_bbox
 from cfun_tpu_torch.models import cfun as tcfun
 from cfun_tpu_torch.models.unet3d import dropout_mask_shapes
-from cfun_tpu_torch.train.step import TrainBatch, TrainDraws, stage_flags
+from cfun_tpu_torch.train.step import TrainDraws, stage_flags
 from cfun_tpu_torch.train.targets import TargetDraws, build_rpn_targets
 
 # A/B tolerances (float32 on both sides; convolutions and reductions sum
